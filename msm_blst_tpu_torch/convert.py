@@ -1,0 +1,59 @@
+"""Carry-over between the JAX package's layouts and the port's.
+
+JAX holds an Fp batch as `uint32[24, *batch]` 16-bit limbs; the port as
+`int32[12, *batch]` 32-bit words with the same bits (word k = limb 2k |
+limb 2k+1 << 16). Both use R = 2^384, so a Montgomery residue converts
+without arithmetic. Everything here takes and returns numpy arrays on the
+JAX side, so it never imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .curves.curve import G1
+from .curves.ops import PackedRows32
+from .msm import params as P
+from .msm.engine import MsmPlan, gap_groups
+
+
+def fp_from_jax(limbs: np.ndarray, device=None) -> torch.Tensor:
+    """np.uint32[2W, *batch] 16-bit limbs -> torch.int32[W, *batch] words."""
+    a = np.asarray(limbs).astype(np.uint32)
+    words = a[0::2] | (a[1::2] << np.uint32(16))
+    return torch.as_tensor(np.ascontiguousarray(words).view(np.int32),
+                           device=device)
+
+
+def fp_to_jax(words: torch.Tensor) -> np.ndarray:
+    """torch.int32[W, *batch] words -> np.uint32[2W, *batch] 16-bit limbs."""
+    w = words.detach().cpu().numpy().view(np.uint32)
+    out = np.empty((2 * w.shape[0],) + w.shape[1:], dtype=np.uint32)
+    out[0::2] = w & np.uint32(0xFFFF)
+    out[1::2] = w >> np.uint32(16)
+    return out
+
+
+def plan_from_jax(arrays: dict, cfg: P.MsmConfig, curve=G1,
+                  device=None) -> MsmPlan:
+    """A port MsmPlan computing the same MSM as a JAX CHES plan.
+
+    `arrays` holds the JAX plan's fields as numpy arrays: "table3nh" (its
+    PackedRows32 `XY`, uint32[3nh, 24]), "packed_table" (the pairs layout,
+    int32[q+1, 2]) and "bucket_gaps" (int32[B-1]). Only the "i" row layout
+    is supported, as in the port's build_plan."""
+    xy = np.array(arrays["table3nh"], dtype=np.uint32)  # a writable copy
+    if xy.ndim != 2 or xy.shape[1] != 2 * curve.F.n_words:
+        raise ValueError(f"table3nh: expected PackedRows32 rows, got {xy.shape}")
+    packed = np.array(arrays["packed_table"], dtype=np.int32)
+    if packed.ndim != 2:
+        raise ValueError("packed_table: expected the pairs layout (q+1, 2)")
+    gaps = np.array(arrays["bucket_gaps"], dtype=np.int32)
+    return MsmPlan(
+        curve=curve, cfg=cfg,
+        table3nh=PackedRows32(torch.as_tensor(xy.view(np.int32), device=device)),
+        packed_table=torch.as_tensor(packed, device=device),
+        bucket_gaps=gaps,
+        gap_groups=gap_groups(gaps, device),
+    )

@@ -1,0 +1,26 @@
+"""The G1 curve instance with host-side constant handling (port of
+msm_blst_tpu/curves/curve.py; G2 waits for the Fp2 field)."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+from ..fields.limb import FP
+from .ops import AffinePoint, CurveOps
+
+
+class G1Curve(CurveOps):
+    def __init__(self):
+        super().__init__(FP, "G1")
+
+    def affine_from_ints(self, pts: Sequence, device=None) -> AffinePoint:
+        """[(x, y) ints] -> Montgomery-domain AffinePoint batch. Infinity is
+        (0, 0); 0's Montgomery form is 0."""
+        return AffinePoint(FP.from_ints([p[0] for p in pts], device=device),
+                           FP.from_ints([p[1] for p in pts], device=device))
+
+    def affine_to_ints(self, p: AffinePoint):
+        return list(zip(FP.to_ints(p.X), FP.to_ints(p.Y)))
+
+
+G1 = G1Curve()

@@ -1,0 +1,131 @@
+"""Precomputation: fixed-point lists and the CHES 3nh table (port of
+msm_blst_tpu/msm/precompute.py:39-168, 425-488).
+
+* P_i = 2^(i+1)*G (reference main_p1.cpp:52-66) is evaluated as e_i*G with
+  a fixed-base window table: depth 32, width n, one K2 mixed add per window.
+* q^j*P_i with q = 2^c is a batched doubling chain: c*h doublings over all
+  n points, plus one batched to-affine at the end.
+
+Only the CHES table in the reference ("i") row order is ported; BGMW95,
+stock and the streamed big-n builders wait for later slices.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import refimpl as ref
+from ..constants import R_ORDER
+from ..curves.ops import AffinePoint, CurveOps, XyzzPoint
+from . import params as P
+from .engine import MsmPlan, gap_groups
+
+_W = 8  # fixed-base window bits: a window digit is one byte of the scalar
+
+
+@functools.lru_cache(maxsize=1)
+def _fixed_base_table_host():
+    """T[j][d] = d * 2^(8j) * G as affine int pairs, built with the oracle."""
+    base = ref.GENERATOR
+    table = []
+    for _ in range(256 // _W):
+        row = [ref.INF]
+        for _d in range(1, 1 << _W):
+            row.append(ref.add(row[-1], base))
+        table.append(row)
+        for _ in range(_W):
+            base = ref.add(base, base)
+    return table
+
+
+def fixed_base_mult(curve: CurveOps, scalars_ints, device=None) -> AffinePoint:
+    """[e_0..e_{n-1}] ints -> affine batch of e_i * G (windowed fixed base)."""
+    if curve.name != "G1":
+        raise NotImplementedError("fixed_base_mult is ported for G1 only")
+    host_table = _fixed_base_table_host()
+    windows = len(host_table)
+    rows = [curve.affine_from_ints(row, device=device) for row in host_table]
+    tx = torch.stack([r.X for r in rows])  # (windows, W, 2^w)
+    ty = torch.stack([r.Y for r in rows])
+    raw = b"".join((e % R_ORDER).to_bytes(32, "little") for e in scalars_ints)
+    digits = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 32).T[:windows]
+    digits = torch.as_tensor(digits.astype(np.int64), device=device)
+    acc = curve.xyzz_inf((digits.shape[1],), device)
+    for j in range(windows):
+        pts = AffinePoint(tx[j].index_select(1, digits[j]),
+                          ty[j].index_select(1, digits[j]))
+        acc = curve.xyzz_dadd_affine(acc, pts)
+    return curve.xyzz_to_affine(acc)
+
+
+def fixed_point_list(curve: CurveOps, n: int, device=None) -> AffinePoint:
+    """P_i = 2^(i+1) * G, i = 0..n-1 — the reference's fixed points."""
+    es = [pow(2, i + 1, R_ORDER) for i in range(n)]
+    return fixed_base_mult(curve, es, device=device)
+
+
+def _doubling_chain_tables(curve: CurveOps, points: AffinePoint, c: int,
+                           h: int) -> XyzzPoint:
+    """For j in 0..h-1 emit (q^j P_i, 2 q^j P_i, 3 q^j P_i), advancing by c
+    batched doublings per window. Coordinates shaped (h, 3, W, n)."""
+    cur = curve.xyzz_from_affine(points)
+    slots = []
+    for _ in range(h):
+        d2 = curve.xyzz_double(cur)
+        d3 = curve.xyzz_dadd(d2, cur)
+        slots.append(XyzzPoint(*(torch.stack(cs) for cs in zip(cur, d2, d3))))
+        for _ in range(c):
+            cur = curve.xyzz_double(cur)
+    return XyzzPoint(*(torch.stack([s[i] for s in slots]) for i in range(4)))
+
+
+def _slots_to_affine_table(curve: CurveOps, slots: XyzzPoint,
+                           n: int) -> AffinePoint:
+    """Flatten (h, n_m, W, n) slots into the reference's table order (slot =
+    n_m*(i*h+j)+(m-1), reference main_p1.cpp:100,163) and convert to affine
+    with one batched inversion per coordinate."""
+    h, n_m = slots.X.shape[0], slots.X.shape[1]
+    flat = XyzzPoint(*(x.permute(2, 0, 1, 3).reshape(x.shape[2], h * n_m * n)
+                       for x in slots))  # (W, h*n_m*n) in (j, m, i) order
+    aff = curve.xyzz_to_affine(flat)
+    # dest slot s = n_m*(i*h+j)+(m-1) <- src = (j*n_m + m-1)*n + i
+    i_ = np.arange(n)[:, None, None]
+    j_ = np.arange(h)[None, :, None]
+    m_ = np.arange(n_m)[None, None, :]
+    src = ((j_ * n_m + m_) * n + i_).reshape(-1)
+    return curve.take(aff, torch.as_tensor(src, device=slots.X.device))
+
+
+def build_ches_table(curve: CurveOps, points: AffinePoint,
+                     cfg: P.MsmConfig) -> AffinePoint:
+    """PRECOMPUTATION_POINTS_LIST_3nh (reference main_p1.cpp:128-178)."""
+    slots = _doubling_chain_tables(curve, points, cfg.c, cfg.h)
+    return _slots_to_affine_table(curve, slots, points.X.shape[-1])
+
+
+def build_plan(curve: CurveOps, points: AffinePoint, cfg: P.MsmConfig,
+               device=None) -> MsmPlan:
+    """The CHES plan: the 3nh table as PackedRows32 rows ("i" layout) plus
+    the config's digit table and gap constants, on `device` (default: the
+    points' device)."""
+    device = points.X.device if device is None else torch.device(device)
+    points = AffinePoint(*(x.to(device) for x in points))
+    plan = MsmPlan(curve=curve, cfg=cfg)
+    plan.table3nh = curve.to_rows32(build_ches_table(curve, points, cfg))
+    _attach_ches_params(plan, cfg, device)
+    return plan
+
+
+def _attach_ches_params(plan: MsmPlan, cfg: P.MsmConfig, device) -> None:
+    """Config-derived digit table and bucket-gap constants (host-cheap)."""
+    plan.packed_table = torch.as_tensor(
+        P.packed_digit_table_pairs(cfg.q, cfg.ah), device=device)
+    bs = cfg.bucket_set()
+    plan.bucket_gaps = np.diff(bs).astype(np.int32)
+    if plan.bucket_gaps.max() > cfg.d_max:
+        raise ValueError(f"bucket gap {plan.bucket_gaps.max()} exceeds "
+                         f"d_max={cfg.d_max}")
+    plan.gap_groups = gap_groups(plan.bucket_gaps, device)

@@ -1,0 +1,130 @@
+"""Prefix-scan bucket accumulation (port of msm_blst_tpu/msm/prefix_pipeline.py).
+
+With the digit stream sorted by bucket key, each bucket occupies a
+contiguous range [left_k, right_k) of the stream, so its sum is a
+difference of stream prefix sums:
+
+    bucket[k] = P(right_k) - P(left_k),   P(i) = sum of the first i points,
+
+and xyzz negation is free (negate Y). Pipeline:
+  1. column-major index permutation (stream pos k*c + j -> lane k, column j),
+  2. packed table row gather,
+  3. level-1 prefix down each lane's columns (K3, cuda_scan),
+  4. prefix scan over the n_ch chunk tails (K4 + carry combine),
+  5. per-bucket boundary gathers + bucket-wide dadds (K2).
+
+Every index the pipeline forms is in range by construction: the stream is
+padded to c*n_ch, positions come from searchsorted and are clamped at 0,
+so nothing relies on JAX's silent clamping of out-of-range gathers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..curves.ops import PackedRows32, XyzzPoint
+from ..utils.scans import pick_chunk
+from . import cuda_scan
+
+
+def stream_shape(N: int):
+    """(columns, chunks): chunk-contiguous layout, stream pos = k*c + j.
+    Kernel-sized streams take a power-of-two lane count in [128, 8192];
+    small ones the compile-lean scan heuristic (kept from the JAX package
+    so intermediates match)."""
+    if N >= 1024:
+        n_ch = min(8192, max(128, 1 << int(np.floor(np.log2(N // 32)))))
+        return -(-N // n_ch), n_ch
+    c = pick_chunk(N)
+    return c, -(-N // c)
+
+
+def column_major_streams(slots_s, signs_s, c: int, n_ch: int):
+    """Pad the sorted streams to c*n_ch and permute to column-major order
+    (index j*n_ch + k holds stream pos k*c + j). Pads land in the trailing
+    chunks, past every bucket boundary."""
+    N = slots_s.shape[0]
+    pad = c * n_ch - N
+    if pad:
+        slots_s = torch.cat([slots_s, slots_s.new_zeros(pad)])
+        signs_s = torch.cat([signs_s, signs_s.new_zeros(pad)])
+    slots_cm = slots_s.reshape(n_ch, c).T.reshape(-1)
+    signs_cm = signs_s.reshape(n_ch, c).T.reshape(-1)
+    return slots_cm, signs_cm
+
+
+def gather_rows(curve, table: PackedRows32, slots_cm, c: int, n_ch: int):
+    """Gather packed table rows for the column-major stream: one whole-row
+    gather, split into X and Y words. Returns ((c, n_ch, W), (c, n_ch, W))."""
+    if not isinstance(table, PackedRows32):
+        raise TypeError(f"gather_rows: expected PackedRows32, got "
+                        f"{type(table).__name__}")
+    W = curve.F.n_words
+    g = table.XY.index_select(0, slots_cm.to(torch.int64))
+    return (g[:, :W].reshape(c, n_ch, W).contiguous(),
+            g[:, W:].reshape(c, n_ch, W).contiguous())
+
+
+def buckets_from_boundaries(curve, local, tails: XyzzPoint, keys_s,
+                            n_buckets: int, c: int, n_ch: int) -> XyzzPoint:
+    """Assemble the dense bucket array from the prefix decomposition.
+    `local`: int32 (c, n_ch, 4W) rows of the four xyzz coordinates."""
+    F = curve.F
+    W = F.n_words
+    dev = keys_s.device
+    incl = cuda_scan.prefix_scan_xyzz(curve, tails)
+    inf1 = curve.xyzz_inf((1,), dev)
+    excl = XyzzPoint(*(torch.cat([z, x[..., :-1]], dim=-1)
+                       for z, x in zip(inf1, incl)))
+
+    # Only the RIGHT boundaries are gathered: left_k (# elements with key <
+    # k) equals right_{k-1}, so P(left_k) is P(right) shifted by one bucket.
+    kq = torch.arange(n_buckets, dtype=keys_s.dtype, device=dev)
+    right = torch.searchsorted(keys_s, kq, right=True)
+    rows = local.reshape(c * n_ch, 4 * W)
+
+    def prefix_at(idx1):
+        """P(idx1) = sum of the first idx1 stream elements; P(0) = inf."""
+        pos = torch.clamp(idx1 - 1, min=0)
+        kch = torch.div(pos, c, rounding_mode="floor")
+        j = pos - kch * c
+        g = rows.index_select(0, j * n_ch + kch)  # (B, 4W)
+        loc = XyzzPoint(*(x.T for x in torch.split(g, W, dim=1)))
+        val = curve.xyzz_dadd(curve.take(excl, kch), loc)
+        return curve.select(idx1 == 0, curve.xyzz_inf(idx1.shape, dev), val)
+
+    pe = prefix_at(right)
+    ps = XyzzPoint(*(torch.cat([z, x[..., :-1]], dim=-1)
+                     for z, x in zip(inf1, pe)))
+    ps_neg = XyzzPoint(ps.X, F.neg(ps.Y), ps.ZZZ, ps.ZZ)
+    return curve.xyzz_dadd(pe, ps_neg)
+
+
+_STREAM_CHUNK_ELEMS = 7 * 1024 * 1024
+
+
+def bucket_sums_prefix(curve, table, slots_s, signs_s, keys_s,
+                       n_buckets: int) -> XyzzPoint:
+    """Per-key sums of a key-sorted signed digit stream, as a dense xyzz
+    bucket array of n_buckets (bucket 0 included). Single pass: the
+    sub-stream chunking of very large streams is not ported yet."""
+    N = keys_s.shape[0]
+    if N > _STREAM_CHUNK_ELEMS:
+        raise NotImplementedError(
+            f"streams above {_STREAM_CHUNK_ELEMS} elements need the chunked "
+            "pipeline, which is not ported yet")
+    return _bucket_sums_prefix_single(curve, table, slots_s, signs_s, keys_s,
+                                      n_buckets)
+
+
+def _bucket_sums_prefix_single(curve, table, slots_s, signs_s, keys_s,
+                               n_buckets: int) -> XyzzPoint:
+    N = keys_s.shape[0]
+    c, n_ch = stream_shape(N)
+    slots_cm, signs_cm = column_major_streams(slots_s, signs_s, c, n_ch)
+    rx, ry = gather_rows(curve, table, slots_cm, c, n_ch)
+    local, tails = cuda_scan.affine_prefix_level(
+        curve, rx, ry, signs_cm.reshape(c, n_ch))
+    return buckets_from_boundaries(curve, local, tails, keys_s, n_buckets,
+                                   c, n_ch)
