@@ -13,17 +13,19 @@ import numpy as np
 import torch
 
 from .curves.curve import G1
-from .curves.ops import PackedRows32
+from .curves.ops import AffinePoint, PackedRows32
+from .device import resolve
 from .msm import params as P
 from .msm.engine import MsmPlan, gap_groups
 
 
 def fp_from_jax(limbs: np.ndarray, device=None) -> torch.Tensor:
-    """np.uint32[2W, *batch] 16-bit limbs -> torch.int32[W, *batch] words."""
+    """np.uint32[2W, *batch] 16-bit limbs -> torch.int32[W, *batch] words on
+    `device` (default: the card)."""
     a = np.asarray(limbs).astype(np.uint32)
     words = a[0::2] | (a[1::2] << np.uint32(16))
     return torch.as_tensor(np.ascontiguousarray(words).view(np.int32),
-                           device=device)
+                           device=resolve(device))
 
 
 def fp_to_jax(words: torch.Tensor) -> np.ndarray:
@@ -35,25 +37,38 @@ def fp_to_jax(words: torch.Tensor) -> np.ndarray:
     return out
 
 
+def _rows(xy, curve, device) -> PackedRows32:
+    xy = np.array(xy, dtype=np.uint32)  # a writable copy
+    if xy.ndim != 2 or xy.shape[1] != 2 * curve.F.n_words:
+        raise ValueError(f"expected PackedRows32 rows, got {xy.shape}")
+    return PackedRows32(torch.as_tensor(xy.view(np.int32), device=device))
+
+
 def plan_from_jax(arrays: dict, cfg: P.MsmConfig, curve=G1,
                   device=None) -> MsmPlan:
-    """A port MsmPlan computing the same MSM as a JAX CHES plan.
+    """A port MsmPlan computing the same MSMs as a JAX plan, on `device`
+    (default: the card).
 
-    `arrays` holds the JAX plan's fields as numpy arrays: "table3nh" (its
-    PackedRows32 `XY`, uint32[3nh, 24]), "packed_table" (the pairs layout,
-    int32[q+1, 2]) and "bucket_gaps" (int32[B-1]). Only the "i" row layout
-    is supported, as in the port's build_plan."""
-    xy = np.array(arrays["table3nh"], dtype=np.uint32)  # a writable copy
-    if xy.ndim != 2 or xy.shape[1] != 2 * curve.F.n_words:
-        raise ValueError(f"table3nh: expected PackedRows32 rows, got {xy.shape}")
-    packed = np.array(arrays["packed_table"], dtype=np.int32)
-    if packed.ndim != 2:
-        raise ValueError("packed_table: expected the pairs layout (q+1, 2)")
-    gaps = np.array(arrays["bucket_gaps"], dtype=np.int32)
-    return MsmPlan(
-        curve=curve, cfg=cfg,
-        table3nh=PackedRows32(torch.as_tensor(xy.view(np.int32), device=device)),
-        packed_table=torch.as_tensor(packed, device=device),
-        bucket_gaps=gaps,
-        gap_groups=gap_groups(gaps, device),
-    )
+    `arrays` holds the JAX plan's fields as numpy arrays, each optional:
+    "table3nh" (its PackedRows32 `XY`, uint32[3nh, 24]) with "packed_table"
+    (the pairs layout, int32[q+1, 2]) and "bucket_gaps" (int32[B-1]) for
+    CHES; "table_nh" (uint32[nh, 24]) and "bgmw_stride3" (bool) for BGMW;
+    "points" (its (X, Y) limb arrays, uint32[24, n] each) for stock. Only
+    the "i" row layout is supported, as in the port's build_plan."""
+    device = resolve(device)
+    plan = MsmPlan(curve=curve, cfg=cfg,
+                   bgmw_stride3=bool(arrays.get("bgmw_stride3", False)))
+    if arrays.get("table3nh") is not None:
+        plan.table3nh = _rows(arrays["table3nh"], curve, device)
+        packed = np.array(arrays["packed_table"], dtype=np.int32)
+        if packed.ndim != 2:
+            raise ValueError("packed_table: expected the pairs layout (q+1, 2)")
+        plan.packed_table = torch.as_tensor(packed, device=device)
+        plan.bucket_gaps = np.array(arrays["bucket_gaps"], dtype=np.int32)
+        plan.gap_groups = gap_groups(plan.bucket_gaps, device)
+    if arrays.get("table_nh") is not None:
+        plan.table_nh = _rows(arrays["table_nh"], curve, device)
+    if arrays.get("points") is not None:
+        plan.points = AffinePoint(*(fp_from_jax(c, device) for c in arrays["points"]))
+        plan.points_rows = curve.to_rows32(plan.points)
+    return plan

@@ -498,4 +498,117 @@ MSM_HD void xyzz_scan_lane(XyzzCols in, XyzzColsOut out, XyzzColsOut tails,
   store_xyzz(tails, run, n_ch, k);
 }
 
+// K5, lane k: one level of the segmented bucket reduction down c columns
+// of a key-sorted stream (msm_blst_tpu/msm/pallas_scan.py:149-234). A key
+// change closes the run: the run that touched column 0 becomes the lane's
+// head, any other run is complete and is stored into the bucket array at
+// its key (keys >= n_buckets are pads or "no bucket" and are skipped);
+// otherwise the column's point is added to the run. The head is stored as
+// soon as it closes (infinity if it never does), so only the run stays in
+// registers. The column sources below lift and add one stream element.
+
+// Affine stream in K3's row layout: rows (c, n_ch, NW) words, signs (c, n_ch).
+struct SegAffineSrc {
+  const uint32_t *rows_x, *rows_y;
+  const int32_t* signs;
+  int64_t n_ch;
+
+  MSM_HD void load(Aff& p, bool& sub, int j, int64_t k) const {
+    int64_t e = (int64_t)j * n_ch + k;
+    load_row(p.x, rows_x + e * NW);
+    load_row(p.y, rows_y + e * NW);
+    sub = signs[e] != 0;
+  }
+  MSM_HD void lift(Xyzz& run, int j, int64_t k) const {
+    Aff p;
+    bool sub;
+    load(p, sub, j, k);
+    xyzz_from_affine(run, p, sub);
+  }
+  MSM_HD void add(Xyzz& run, int j, int64_t k) const {
+    Aff p;
+    bool sub;
+    load(p, sub, j, k);
+    xyzz_dadd_affine(run, run, p, sub);
+  }
+};
+
+// Xyzz stream in K4's column layout: coordinates (c, NW, n_ch).
+struct SegXyzzSrc {
+  XyzzCols in;
+  int64_t n_ch;
+
+  MSM_HD void lift(Xyzz& run, int j, int64_t k) const {
+    const int64_t col = (int64_t)j * NW * n_ch;
+    XyzzCols cj = {in.x + col, in.y + col, in.zzz + col, in.zz + col};
+    load_xyzz(run, cj, n_ch, k);
+  }
+  MSM_HD void add(Xyzz& run, int j, int64_t k) const {
+    Xyzz p;
+    lift(p, j, k);
+    xyzz_dadd(run, run, p);
+  }
+};
+
+// keys: (c, n_ch); buckets: four [NW, n_buckets] batches, updated in place;
+// head/tail: four [NW, n_ch] batches; head_key/tail_key: (n_ch,).
+template <class Src>
+MSM_HD void seg_level_lane(const Src& src, const int32_t* keys,
+                           XyzzColsOut buckets, int64_t n_buckets,
+                           XyzzColsOut head, XyzzColsOut tail,
+                           int32_t* head_key, int32_t* tail_key, int c,
+                           int64_t n_ch, int64_t k) {
+  Xyzz run;
+  src.lift(run, 0, k);
+  int32_t run_key = keys[k];
+  int32_t hk = run_key;
+  bool from0 = true;
+  for (int j = 1; j < c; ++j) {
+    int32_t ky = keys[(int64_t)j * n_ch + k];
+    if (ky != run_key) {
+      if (from0) {
+        store_xyzz(head, run, n_ch, k);
+        hk = run_key;
+        from0 = false;
+      } else if ((uint32_t)run_key < (uint64_t)n_buckets) {
+        store_xyzz(buckets, run, n_buckets, run_key);
+      }
+      src.lift(run, j, k);
+    } else {
+      src.add(run, j, k);
+    }
+    run_key = ky;
+  }
+  if (from0) {  // one run down the whole lane: the head stays infinity
+    Xyzz inf;
+    xyzz_set_inf(inf);
+    store_xyzz(head, inf, n_ch, k);
+    hk = run_key;
+  }
+  head_key[k] = hk;
+  tail_key[k] = run_key;
+  store_xyzz(tail, run, n_ch, k);
+}
+
+MSM_HD void seg_level_affine_lane(const uint32_t* rows_x, const uint32_t* rows_y,
+                                  const int32_t* signs, const int32_t* keys,
+                                  XyzzColsOut buckets, int64_t n_buckets,
+                                  XyzzColsOut head, XyzzColsOut tail,
+                                  int32_t* head_key, int32_t* tail_key, int c,
+                                  int64_t n_ch, int64_t k) {
+  SegAffineSrc src = {rows_x, rows_y, signs, n_ch};
+  seg_level_lane(src, keys, buckets, n_buckets, head, tail, head_key, tail_key,
+                 c, n_ch, k);
+}
+
+MSM_HD void seg_level_xyzz_lane(XyzzCols in, const int32_t* keys,
+                                XyzzColsOut buckets, int64_t n_buckets,
+                                XyzzColsOut head, XyzzColsOut tail,
+                                int32_t* head_key, int32_t* tail_key, int c,
+                                int64_t n_ch, int64_t k) {
+  SegXyzzSrc src = {in, n_ch};
+  seg_level_lane(src, keys, buckets, n_buckets, head, tail, head_key, tail_key,
+                 c, n_ch, k);
+}
+
 }  // namespace msm

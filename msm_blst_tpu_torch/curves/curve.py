@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+from ..device import resolve
 from ..fields.limb import FP
 from .ops import AffinePoint, CurveOps
 
@@ -14,8 +15,9 @@ class G1Curve(CurveOps):
         super().__init__(FP, "G1")
 
     def affine_from_ints(self, pts: Sequence, device=None) -> AffinePoint:
-        """[(x, y) ints] -> Montgomery-domain AffinePoint batch. Infinity is
-        (0, 0); 0's Montgomery form is 0."""
+        """[(x, y) ints] -> Montgomery-domain AffinePoint batch on `device`
+        (default: the card). Infinity is (0, 0); 0's Montgomery form is 0."""
+        device = resolve(device)
         return AffinePoint(FP.from_ints([p[0] for p in pts], device=device),
                            FP.from_ints([p[1] for p in pts], device=device))
 

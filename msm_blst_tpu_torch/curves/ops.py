@@ -1,9 +1,10 @@
 """Branch-free batched point arithmetic in xyzz and Jacobian coordinates.
 
 Port of msm_blst_tpu/curves/ops.py for G1 (a = 0 short Weierstrass). Every
-case is computed over the whole batch and lane-selected with `where`; the
-formulas take the same steps in the same order as the JAX bodies, so with
-canonical field values they give the same words.
+case is computed over the whole batch and lane-selected with `where` (the
+doubling branch of the adds only when some lane doubles, as the JAX bodies'
+cond_dbl); the formulas take the same steps in the same order as the JAX
+bodies, so with canonical field values they give the same words.
 
 Infinity conventions (as refimpl and the JAX package):
   affine: (0, 0) | Jacobian: Z == 0 | xyzz: ZZ == 0 and ZZZ == 0.
@@ -111,7 +112,8 @@ class CurveOps:
     def xyzz_dadd_body(self, p1: XyzzPoint, p2: XyzzPoint,
                        F=None) -> XyzzPoint:
         """add-2008-s with case analysis: P == Q doubles, P == -Q gives
-        infinity, an infinite operand yields the other."""
+        infinity, an infinite operand yields the other. The doubling runs
+        only when some lane doubles (the JAX body's cond_dbl)."""
         F = F or self.F
         U1, S1, U2, S2, ZZp, ZZZp = F.mul_many([
             (p1.X, p2.ZZ), (p1.Y, p2.ZZZ), (p2.X, p1.ZZ), (p2.Y, p1.ZZZ),
@@ -130,8 +132,9 @@ class CurveOps:
         p_zero = F.is_zero(Pv)
         r_zero = F.is_zero(Rv)
         dbl_mask = p_zero & r_zero & ~p1_inf & ~p2_inf
-        dbl = self.xyzz_double_body(p1, F)
-        out = self.select(dbl_mask, dbl, added)
+        out = added
+        if dbl_mask.any():
+            out = self.select(dbl_mask, self.xyzz_double_body(p1, F), added)
         out = self.select(p_zero & ~r_zero & ~p1_inf & ~p2_inf,
                           self.xyzz_inf(p1.X.shape[1:], p1.X.device), out)
         out = self.select(p2_inf, p1, out)
@@ -139,7 +142,8 @@ class CurveOps:
 
     def xyzz_dadd_affine_body(self, p1: XyzzPoint, p2: AffinePoint,
                               subtract=None, F=None) -> XyzzPoint:
-        """The MSM hot op: signed madd-2008-s with case analysis."""
+        """The MSM hot op: signed madd-2008-s with case analysis; the
+        doubling runs only when some lane doubles (cond_dbl)."""
         F = F or self.F
         y2 = p2.Y if subtract is None else F.cneg(p2.Y, subtract)
         P0, R0 = F.mul_many([(p2.X, p1.ZZ), (y2, p1.ZZZ)])
@@ -157,14 +161,16 @@ class CurveOps:
         p_zero = F.is_zero(Pv)
         r_zero = F.is_zero(Rv)
         dbl_mask = p_zero & r_zero & ~p1_inf & ~p2_inf
-        U = F.double(y2)
-        V, A = F.mul_many([(U, U), (p2.X, p2.X)])
-        M = F.mul3(A)
-        W, S, MM = F.mul_many([(U, V), (p2.X, V), (M, M)])
-        Xd = F.sub(MM, F.double(S))
-        T3, T4 = F.mul_many([(M, F.sub(S, Xd)), (W, y2)])
-        dbl = XyzzPoint(Xd, F.sub(T3, T4), W, V)
-        out = self.select(dbl_mask, dbl, added)
+        out = added
+        if dbl_mask.any():
+            U = F.double(y2)
+            V, A = F.mul_many([(U, U), (p2.X, p2.X)])
+            M = F.mul3(A)
+            W, S, MM = F.mul_many([(U, V), (p2.X, V), (M, M)])
+            Xd = F.sub(MM, F.double(S))
+            T3, T4 = F.mul_many([(M, F.sub(S, Xd)), (W, y2)])
+            out = self.select(dbl_mask, XyzzPoint(Xd, F.sub(T3, T4), W, V),
+                              added)
         out = self.select(p_zero & ~r_zero & ~p1_inf & ~p2_inf,
                           self.xyzz_inf(p1.X.shape[1:], p1.X.device), out)
         out = self.select(p1_inf, self.xyzz_from_affine(p2, negate=subtract),

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..constants import P, R_ORDER
+from ..device import resolve
 
 LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
@@ -99,21 +100,22 @@ def resolve_limbs(s: torch.Tensor, bits: int = 32) -> torch.Tensor:
 
     Requires the value < 2^(16 (K+1)); anything above is dropped, so
     `resolve_limbs(s)[:K]` is the value mod 2^(16K). Local carry passes
-    first bring every limb to at most 17 bits, then a Kogge-Stone
-    carry-lookahead resolves the single-bit ripple (as the JAX version)."""
+    first bring every limb to at most 17 bits; then the single-bit ripple
+    is resolved at once: the carry into limb k is the carry out of the last
+    limb below k that does not merely propagate (one that generates, or
+    one that stops a carry), found with a running maximum of indices."""
     s = torch.cat([s, torch.zeros_like(s[:1])])
     while bits > LIMB_BITS + 1:
         s = (s & MASK) + _shift_up(s >> LIMB_BITS)
         bits = max(bits - LIMB_BITS, LIMB_BITS) + 1
     g = s >> LIMB_BITS
-    p = ((s & MASK) == MASK).to(s.dtype)
+    stops = (g != 0) | ((s & MASK) != MASK)
     K = s.shape[0]
-    d = 1
-    while d < K:
-        g = g | (p & _shift_up(g, d))
-        p = p & _shift_up(p, d, fill=1)
-        d *= 2
-    return (s + _shift_up(g)) & MASK
+    idx = torch.arange(K, device=s.device).reshape((K,) + (1,) * (s.ndim - 1))
+    last = torch.cummax(torch.where(stops, idx, -1), dim=0).values
+    src = _shift_up(last, 1, fill=-1)  # the last stop strictly below k
+    carry = torch.gather(g, 0, src.clamp(min=0)) * (src >= 0)
+    return (s + carry) & MASK
 
 
 def _limb_array(x: int, n_limbs: int) -> np.ndarray:
@@ -297,11 +299,13 @@ class LimbField:
 
     # ---- host io -------------------------------------------------------------------
     def from_ints(self, xs, mont: bool = True, device=None) -> torch.Tensor:
-        """Host ints -> batch, canonicalised mod p (optionally Montgomery)."""
+        """Host ints -> batch, canonicalised mod p (optionally Montgomery),
+        on `device` (default: the card, device.default_device)."""
         vals = [x % self.modulus for x in xs]
         if mont:
             vals = [x * self.R % self.modulus for x in vals]
-        return torch.as_tensor(ints_to_array(vals, self.n_words), device=device)
+        return torch.as_tensor(ints_to_array(vals, self.n_words),
+                               device=resolve(device))
 
     def to_ints(self, a, mont: bool = True) -> list:
         vals = array_to_ints(a.reshape(self.n_words, -1))

@@ -1,9 +1,11 @@
 """Build, load and launch the port's CUDA kernels (sources in csrc/).
 
-The kernels are compiled at first use with nvcc into one shared library with
-a plain C interface, loaded with ctypes, and cached under `_build/` by a
-hash of the sources. Nothing here runs at import: the CPU tests import every
-module of the port on a machine without nvcc or a card.
+The kernels are compiled at first use with nvcc — one process per source,
+all started together, then one link — into one shared library with a plain
+C interface, loaded with ctypes, and cached under `_build/` by a hash of the
+sources. ptxas reports each kernel's registers and spills into a log beside
+the library (`ptxas_summary`). Nothing here runs at import: the CPU tests
+import every module of the port on a machine without nvcc or a card.
 
 Each kernel entry point is a `Kernel`: calling it launches the kernel on
 PyTorch's current stream, raises if the launch failed, and adds one to its
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,7 +29,7 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -55,26 +58,55 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the cached shared library (no-op when built)."""
+    """Compile csrc/*.cu into the cached shared library (no-op when built):
+    every source in its own nvcc process, in parallel, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = nvcc_path()
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, cus)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}{proc.stdout}")
-        os.replace(tmp, so)
+        objs = [tmp / (cu.stem + ".o") for cu in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for cu, o in zip(cus, objs)]
+        logs = [(cu, proc.communicate()[0], proc.returncode)
+                for cu, proc in zip(cus, procs)]
+        failed = [f"{cu.name} ({rc}):\n{out}" for cu, out, rc in logs if rc]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp / so.name),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}{link.stdout}")
+        so.with_suffix(".log").write_text("".join(out for _, out, _ in logs))
+        os.replace(tmp / so.name, so)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     return so
+
+
+def ptxas_summary() -> dict:
+    """{kernel: "N registers, S B spill stores, L B spill loads"} from the
+    build log of the current library (built first if needed)."""
+    log = build().with_suffix(".log").read_text()
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(?:\S*?\d)?([a-z][a-z_]*_kernel)",
+                      line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+    return out
 
 
 _P = ctypes.c_void_p
@@ -88,6 +120,8 @@ _SIGNATURES = {
     "msm_xyzz_double": [_P] * 8 + [_I64, _P],
     "msm_affine_prefix_level": [_P] * 8 + [_I32, _I64, _P],
     "msm_xyzz_scan_level": [_P] * 12 + [_I32, _I64, _P],
+    "msm_seg_level_affine": [_P] * 8 + [_I64] + [_P] * 10 + [_I32, _I64, _P],
+    "msm_seg_level_xyzz": [_P] * 9 + [_I64] + [_P] * 10 + [_I32, _I64, _P],
 }
 
 

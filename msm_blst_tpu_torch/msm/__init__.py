@@ -1,6 +1,9 @@
-"""The CHES 'nh + 0.21q' MSM query and the precompute it reads."""
+"""The MSM algorithms over G1 (CHES, BGMW95, stock Pippenger) and the
+precompute they read."""
 
 from . import params, recode  # noqa: F401
-from .engine import MsmPlan, msm_ches_device  # noqa: F401
-from .precompute import (build_ches_table, build_plan,  # noqa: F401
-                         fixed_base_mult, fixed_point_list)
+from .engine import (MsmPlan, bucket_impl, msm_bgmw_device,  # noqa: F401
+                     msm_ches_device, msm_ches_host_recode,
+                     msm_stock_pippenger, pippenger_window_size)
+from .precompute import (build_bgmw_table, build_ches_table,  # noqa: F401
+                         build_plan, fixed_base_mult, fixed_point_list)

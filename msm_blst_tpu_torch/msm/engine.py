@@ -1,41 +1,101 @@
-"""The CHES "nh + 0.21q" MSM query (port of msm_blst_tpu/msm/engine.py:82-99,
-148-189, 197-230, 278-282, 327-368).
+"""The port's MSM algorithms over G1 (port of msm_blst_tpu/msm/engine.py:
+62-145, 148-189, 197-230, 278-300, 327-368, 643-750).
 
-Query path, zero doublings: on-device recode -> sort of the digit stream
-by bucket -> prefix-scan bucket accumulation (prefix_pipeline) -> d-gap
-integration -> Jacobian result. BGMW95, stock Pippenger, the noindexhash
+* CHES "nh + 0.21q": `msm_ches_device` (on-device recode) and
+  `msm_ches_host_recode` (host recode, the digit stream moved once to the
+  plan's device); zero doublings, d-gap integration.
+* BGMW95 q/2: `msm_bgmw_device`, with the r - a fold for tight configs and
+  the consecutive-weight integration.
+* Stock Pippenger (blst's, no precomputation): `msm_stock_pippenger`, one
+  bucket pass per window from the top window down, c doublings between.
+
+Each sorts its digit stream by bucket key and accumulates the buckets with
+one of two strategies (`bucket_impl`): "prefix" (prefix_pipeline, the
+default) or "segmented" (scan.segmented_reduce_affine, K5). The noindexhash
 variant and the big-n ranged driver are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..curves.ops import CurveOps, JacPoint, PackedRows32, XyzzPoint
+from ..curves.ops import (AffinePoint, CurveOps, JacPoint, PackedRows32,
+                          XyzzPoint)
 from . import params as P
 from . import recode
 from .prefix_pipeline import bucket_sums_prefix
-from .scan import fold_xyzz, suffix_scan_xyzz
+from .scan import (fold_xyzz, scan_fold_axis, segmented_reduce_affine,
+                   suffix_scan_xyzz)
+
+BUCKET_IMPLS = ("prefix", "segmented")
 
 
-def _bucket_sums_stream(curve, table, slots, keys, signs, n_buckets: int):
+def bucket_impl() -> str:
+    """The default bucket accumulation strategy: MSM_BUCKET_IMPL, 'prefix'
+    (prefix scan + boundary differences) unless it says 'segmented'
+    (head/tail/emission reduction)."""
+    return os.environ.get("MSM_BUCKET_IMPL", "prefix")
+
+
+def _bucket_sums_stream(curve, table, slots, keys, signs, n_buckets: int,
+                        impl: Optional[str] = None):
     """Sort the digit stream by bucket key, then accumulate into buckets.
 
     slots/keys/signs: int/int/bool flat [N] streams. The (slot, sign)
     payload rides a stable sort on the keys, so the order inside a bucket
     is the stream order (JAX's unstable sort leaves it arbitrary; bucket
-    sums agree as points, not as xyzz words)."""
+    sums agree as points, not as xyzz words). `impl`: 'prefix' or
+    'segmented', default bucket_impl()."""
+    impl = impl or bucket_impl()
+    if impl not in BUCKET_IMPLS:
+        raise ValueError(f"bucket_impl must be one of {BUCKET_IMPLS}, got {impl!r}")
     payload = (slots.to(torch.int32) << 1) | signs.to(torch.int32)
     keys_s, perm = torch.sort(keys.to(torch.int32), stable=True)
     payload_s = payload[perm]
     signs_s = (payload_s & 1) != 0
     slots_s = payload_s >> 1
-    return bucket_sums_prefix(curve, table, slots_s, signs_s, keys_s,
-                              n_buckets)
+    if impl == "prefix":
+        return bucket_sums_prefix(curve, table, slots_s, signs_s, keys_s,
+                                  n_buckets)
+    rows = PackedRows32(table.XY.index_select(0, slots_s.to(torch.int64)))
+    return segmented_reduce_affine(curve, rows, signs_s, keys_s, n_buckets)
+
+
+def _weighted_small(curve: CurveOps, pts: XyzzPoint) -> XyzzPoint:
+    """Sum i * pts[i] over a small batch (suffix scan + fold)."""
+    tail = XyzzPoint(*(c[..., 1:] for c in pts))
+    return fold_xyzz(curve, suffix_scan_xyzz(curve, tail))
+
+
+def integrate_weighted_consecutive(curve: CurveOps,
+                                   buckets: XyzzPoint) -> XyzzPoint:
+    """Sum i * buckets[i] over i = 0..K-1 (bucket 0's weight is 0).
+
+    Index split i = u*C + v: Sum_i i*b_i = C * Sum_u u*R_u + Sum_v v*K_v
+    with R_u the row sums and K_v the column sums of the (U, C) bucket grid
+    (zero pad = infinity): two folds over K lanes plus two small weighted
+    sums, instead of a full-width suffix scan (reference
+    multi_scalar.c:281-297)."""
+    K = buckets.X.shape[-1]
+    if K <= 64:
+        return _weighted_small(curve, buckets)
+    C = 1 << max(K.bit_length() // 2, 1)
+    U = -(-K // C)
+    pad = U * C - K
+    grid = XyzzPoint(*(torch.cat([c, c.new_zeros(c.shape[:-1] + (pad,))], dim=-1)
+                       .reshape(c.shape[:-1] + (U, C)) for c in buckets))
+    rows = scan_fold_axis(curve, grid, axis=-1)   # (U,)
+    cols = scan_fold_axis(curve, grid, axis=-2)   # (C,)
+    hi = _weighted_small(curve, rows)             # Sum_u u*R_u
+    lo = _weighted_small(curve, cols)             # Sum_v v*K_v
+    for _ in range(C.bit_length() - 1):
+        hi = curve.xyzz_double(hi)
+    return curve.xyzz_dadd(hi, lo)
 
 
 def gap_groups(gaps_np: np.ndarray, device=None) -> tuple:
@@ -85,12 +145,20 @@ class MsmPlan:
 
     curve: CurveOps
     cfg: P.MsmConfig
-    # slot 3*(i*h+j)+m-1 (reference main_p1.cpp:155-177), PackedRows32 rows
+    # CHES: slot 3*(i*h+j)+m-1 (reference main_p1.cpp:155-177), PackedRows32
     table3nh: Optional[PackedRows32] = None
     packed_table: Optional[torch.Tensor] = None  # int32[q+1, 2] pairs layout
     bucket_gaps: Optional[np.ndarray] = None     # host int32[B_SIZE-1]
     gap_groups: Optional[tuple] = None           # gap_groups(bucket_gaps)
     noindexhash: bool = False
+    # BGMW95: slot i*h'+j (reference main_p1.cpp:94-122), PackedRows32
+    table_nh: Optional[PackedRows32] = None
+    # the nh table aliased into table3nh's m=1 rows (slot 3*(i*h+j)) when the
+    # CHES and BGMW radixes match (reference main_p1.cpp:99-106)
+    bgmw_stride3: bool = False
+    # stock: the raw fixed points and their rows
+    points: Optional[AffinePoint] = None
+    points_rows: Optional[PackedRows32] = None
 
 
 def ches_slots(i_idx, j_idx, m1, h: int):
@@ -100,13 +168,36 @@ def ches_slots(i_idx, j_idx, m1, h: int):
     return 3 * (i_idx * h + j_idx) + m1
 
 
-def msm_ches_device(plan: MsmPlan, scalars: torch.Tensor) -> JacPoint:
+def bgmw_slots(i_idx, j_idx, h: int):
+    """Table row of the (i, j) BGMW95 entry, "i" layout."""
+    return i_idx * h + j_idx
+
+
+def bgmw_table_slots(plan: MsmPlan, slots):
+    """The BGMW table and its slots: the dedicated nh table, or the stride-3
+    view of the 3nh CHES table when the radixes match (its m=1 rows)."""
+    if plan.table_nh is not None:
+        return plan.table_nh, slots
+    if plan.bgmw_stride3 and plan.table3nh is not None:
+        return plan.table3nh, slots * 3
+    raise ValueError("plan has no BGMW table (build_plan(..., bgmw=True))")
+
+
+def _ches_query(plan: MsmPlan, slots, keys, signs, impl) -> JacPoint:
+    buckets = _bucket_sums_stream(plan.curve, plan.table3nh, slots, keys,
+                                  signs, plan.cfg.b_size, impl)
+    return plan.curve.xyzz_to_jac(
+        integrate_gapped(plan.curve, buckets, plan.gap_groups))
+
+
+def msm_ches_device(plan: MsmPlan, scalars: torch.Tensor,
+                    bucket_impl: Optional[str] = None) -> JacPoint:
     """CHES 'nh + 0.21q' MSM with on-device integral scalar conversion.
 
     scalars: int32[8, n] (recode.to_device) on the plan's device. Returns a
     Jacobian batch of 1. Query path: zero doublings (reference
     main_p1.cpp:192-246 + multi_scalar.c:421-463)."""
-    cfg, curve = plan.cfg, plan.curve
+    cfg = plan.cfg
     if plan.noindexhash:
         raise NotImplementedError("the noindexhash variant is not ported yet")
     if plan.packed_table is None:
@@ -120,7 +211,90 @@ def msm_ches_device(plan: MsmPlan, scalars: torch.Tensor) -> JacPoint:
     keys, m1, s = recode.ches_recode_device_packed(
         scalars, cfg.c, h, plan.packed_table)
     slots = ches_slots(i_idx, j_idx, m1, h)
-    buckets = _bucket_sums_stream(
-        curve, plan.table3nh, slots.reshape(-1), keys.reshape(-1),
-        s.reshape(-1), cfg.b_size)
-    return curve.xyzz_to_jac(integrate_gapped(curve, buckets, plan.gap_groups))
+    return _ches_query(plan, slots.reshape(-1), keys.reshape(-1),
+                       s.reshape(-1), bucket_impl)
+
+
+def msm_ches_host_recode(plan: MsmPlan, scalars_np: np.ndarray,
+                         bucket_impl: Optional[str] = None) -> JacPoint:
+    """CHES MSM with the recode on the host (the reference's method 1): the
+    digit stream is computed with numpy and moved once to the plan's
+    device, then sorted, accumulated and integrated there."""
+    cfg = plan.cfg
+    n = scalars_np.shape[1]
+    h = cfg.h
+    b, m, s = recode.ches_recode_host(scalars_np, cfg.c, h, cfg.ah)  # [n, h]
+    keys = P.bucket_value_to_index(cfg.q, cfg.ah)[b]
+    i_idx = np.arange(n, dtype=np.int64)[:, None]
+    j_idx = np.arange(h, dtype=np.int64)[None, :]
+    slots = ches_slots(i_idx, j_idx, m - 1, h).astype(np.int32)
+    dev = plan.table3nh.XY.device
+    return _ches_query(plan,
+                       torch.as_tensor(slots.reshape(-1), device=dev),
+                       torch.as_tensor(keys.reshape(-1), device=dev),
+                       torch.as_tensor(s.reshape(-1), device=dev), bucket_impl)
+
+
+def msm_bgmw_device(plan: MsmPlan, scalars: torch.Tensor,
+                    bucket_impl: Optional[str] = None) -> JacPoint:
+    """BGMW95 q/2 variant, fully on the device (reference main_p1.cpp:
+    294-398). For tight configs (c*h <= 255) the top digit bound exceeds
+    q/2, so the group-order fold a -> r - a (and a global sign flip) runs
+    first, as the reference does on the host."""
+    cfg, curve = plan.cfg, plan.curve
+    c, h = cfg.c_bgmw, cfg.h_bgmw
+    n = scalars.shape[1]
+    dev = scalars.device
+    scalars = recode.reduce_mod_r_device(scalars)
+    flip = None
+    if c * h <= 255:
+        scalars, flip = recode.fold_r_minus_a_device(scalars)
+    absd, sign = recode.signed_digits_device(scalars, c, h)  # [h, n]
+    if flip is not None:
+        sign = sign ^ flip[None, :]
+    i_idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    j_idx = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    table, slots = bgmw_table_slots(plan, bgmw_slots(i_idx, j_idx, h))
+    buckets = _bucket_sums_stream(curve, table, slots.reshape(-1),
+                                  absd.reshape(-1), sign.reshape(-1),
+                                  (cfg.q_bgmw >> 1) + 1, bucket_impl)
+    return curve.xyzz_to_jac(integrate_weighted_consecutive(curve, buckets))
+
+
+def msm_stock_pippenger(plan: MsmPlan, scalars: torch.Tensor,
+                        window: Optional[int] = None, nbits: int = 255,
+                        bucket_impl: Optional[str] = None) -> JacPoint:
+    """Stock Pippenger, no precomputation (reference multi_scalar.c:
+    549-576): per window a bucket pass over the n points and a weighted
+    integration, combined from the top window down with c doublings.
+
+    nbits bounds the scalars (blst API parity); one extra bit of headroom
+    keeps the top signed digit <= q/2."""
+    curve = plan.curve
+    if plan.points_rows is None:
+        raise ValueError("plan has no point rows (build_plan(..., stock=True))")
+    n = scalars.shape[1]
+    c = window or pippenger_window_size(n)
+    h = -(-(nbits + 1) // c)
+    absd, sign = recode.signed_digits_device(scalars, c, h)  # [h, n]
+    n_buckets = (1 << (c - 1)) + 1
+    point_idx = torch.arange(n, dtype=torch.int32, device=scalars.device)
+    acc = curve.xyzz_inf((1,), scalars.device)
+    for j in range(h - 1, -1, -1):
+        buckets = _bucket_sums_stream(curve, plan.points_rows, point_idx,
+                                      absd[j], sign[j], n_buckets, bucket_impl)
+        tile = integrate_weighted_consecutive(curve, buckets)
+        for _ in range(c):
+            acc = curve.xyzz_double(acc)
+        acc = curve.xyzz_dadd(acc, tile)
+    return curve.xyzz_to_jac(acc)
+
+
+def pippenger_window_size(npoints: int) -> int:
+    """blst's window heuristic (reference auxiliaryfunc.h:316-323)."""
+    wbits = max(npoints.bit_length() - 1, 0)
+    if wbits > 12:
+        return wbits - 3
+    if wbits > 4:
+        return wbits - 2
+    return 2 if wbits else 1

@@ -135,6 +135,10 @@ class MsmConfig:
     def q(self) -> int:
         return 1 << self.c
 
+    @property
+    def q_bgmw(self) -> int:
+        return 1 << self.c_bgmw
+
     def bucket_set(self) -> np.ndarray:
         bs = construct_bucket_set(self.q, self.ah)
         assert len(bs) == self.b_size, (len(bs), self.b_size)

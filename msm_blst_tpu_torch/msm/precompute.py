@@ -1,13 +1,13 @@
-"""Precomputation: fixed-point lists and the CHES 3nh table (port of
-msm_blst_tpu/msm/precompute.py:39-168, 425-488).
+"""Precomputation: fixed-point lists, the CHES 3nh and BGMW95 nh tables and
+the plan (port of msm_blst_tpu/msm/precompute.py:39-168, 425-488).
 
 * P_i = 2^(i+1)*G (reference main_p1.cpp:52-66) is evaluated as e_i*G with
   a fixed-base window table: depth 32, width n, one K2 mixed add per window.
 * q^j*P_i with q = 2^c is a batched doubling chain: c*h doublings over all
   n points, plus one batched to-affine at the end.
 
-Only the CHES table in the reference ("i") row order is ported; BGMW95,
-stock and the streamed big-n builders wait for later slices.
+Only the reference ("i") row order is ported; the streamed big-n builders
+(the "j" layout) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from .. import refimpl as ref
 from ..constants import R_ORDER
+from ..device import resolve
 from ..curves.ops import AffinePoint, CurveOps, XyzzPoint
 from . import params as P
 from .engine import MsmPlan, gap_groups
@@ -42,7 +43,9 @@ def _fixed_base_table_host():
 
 
 def fixed_base_mult(curve: CurveOps, scalars_ints, device=None) -> AffinePoint:
-    """[e_0..e_{n-1}] ints -> affine batch of e_i * G (windowed fixed base)."""
+    """[e_0..e_{n-1}] ints -> affine batch of e_i * G (windowed fixed base),
+    on `device` (default: the card)."""
+    device = resolve(device)
     if curve.name != "G1":
         raise NotImplementedError("fixed_base_mult is ported for G1 only")
     host_table = _fixed_base_table_host()
@@ -62,21 +65,24 @@ def fixed_base_mult(curve: CurveOps, scalars_ints, device=None) -> AffinePoint:
 
 
 def fixed_point_list(curve: CurveOps, n: int, device=None) -> AffinePoint:
-    """P_i = 2^(i+1) * G, i = 0..n-1 — the reference's fixed points."""
+    """P_i = 2^(i+1) * G, i = 0..n-1 — the reference's fixed points, on
+    `device` (default: the card)."""
     es = [pow(2, i + 1, R_ORDER) for i in range(n)]
     return fixed_base_mult(curve, es, device=device)
 
 
 def _doubling_chain_tables(curve: CurveOps, points: AffinePoint, c: int,
-                           h: int) -> XyzzPoint:
-    """For j in 0..h-1 emit (q^j P_i, 2 q^j P_i, 3 q^j P_i), advancing by c
-    batched doublings per window. Coordinates shaped (h, 3, W, n)."""
+                           h: int, with_m23: bool) -> XyzzPoint:
+    """For j in 0..h-1 emit (q^j P_i [, 2 q^j P_i, 3 q^j P_i]), advancing by
+    c batched doublings per window. Coordinates shaped (h, n_m, W, n)."""
     cur = curve.xyzz_from_affine(points)
     slots = []
     for _ in range(h):
-        d2 = curve.xyzz_double(cur)
-        d3 = curve.xyzz_dadd(d2, cur)
-        slots.append(XyzzPoint(*(torch.stack(cs) for cs in zip(cur, d2, d3))))
+        group = [cur]
+        if with_m23:
+            d2 = curve.xyzz_double(cur)
+            group += [d2, curve.xyzz_dadd(d2, cur)]
+        slots.append(XyzzPoint(*(torch.stack(cs) for cs in zip(*group))))
         for _ in range(c):
             cur = curve.xyzz_double(cur)
     return XyzzPoint(*(torch.stack([s[i] for s in slots]) for i in range(4)))
@@ -102,20 +108,47 @@ def _slots_to_affine_table(curve: CurveOps, slots: XyzzPoint,
 def build_ches_table(curve: CurveOps, points: AffinePoint,
                      cfg: P.MsmConfig) -> AffinePoint:
     """PRECOMPUTATION_POINTS_LIST_3nh (reference main_p1.cpp:128-178)."""
-    slots = _doubling_chain_tables(curve, points, cfg.c, cfg.h)
+    slots = _doubling_chain_tables(curve, points, cfg.c, cfg.h, with_m23=True)
+    return _slots_to_affine_table(curve, slots, points.X.shape[-1])
+
+
+def build_bgmw_table(curve: CurveOps, points: AffinePoint,
+                     cfg: P.MsmConfig) -> AffinePoint:
+    """PRECOMPUTATION_POINTS_LIST_BGMW95 (reference main_p1.cpp:94-122):
+    slot i*h'+j holds q'^j P_i."""
+    slots = _doubling_chain_tables(curve, points, cfg.c_bgmw, cfg.h_bgmw,
+                                   with_m23=False)
     return _slots_to_affine_table(curve, slots, points.X.shape[-1])
 
 
 def build_plan(curve: CurveOps, points: AffinePoint, cfg: P.MsmConfig,
-               device=None) -> MsmPlan:
-    """The CHES plan: the 3nh table as PackedRows32 rows ("i" layout) plus
-    the config's digit table and gap constants, on `device` (default: the
-    points' device)."""
+               ches: bool = True, bgmw: bool = True, stock: bool = True,
+               streamed: bool = False, device=None) -> MsmPlan:
+    """The tables of the requested algorithms, as PackedRows32 rows in the
+    "i" layout, on `device` (default: the points' device).
+
+    ches: the 3nh table with the digit table and gap constants. bgmw: the nh
+    table, or none when CHES and BGMW share the radix and window count: the
+    BGMW query then reads the 3nh table's m=1 rows (bgmw_stride3, the
+    reference's reuse, main_p1.cpp:99-106). stock: the points' own rows.
+    streamed=True (the JAX package's "j"-layout big-n builders) is not
+    ported."""
+    if streamed:
+        raise NotImplementedError("the streamed big-n table builders are not "
+                                  "ported yet")
     device = points.X.device if device is None else torch.device(device)
     points = AffinePoint(*(x.to(device) for x in points))
-    plan = MsmPlan(curve=curve, cfg=cfg)
-    plan.table3nh = curve.to_rows32(build_ches_table(curve, points, cfg))
-    _attach_ches_params(plan, cfg, device)
+    plan = MsmPlan(curve=curve, cfg=cfg, points=points)
+    if ches and bgmw and cfg.c == cfg.c_bgmw and cfg.h == cfg.h_bgmw:
+        bgmw = False
+        plan.bgmw_stride3 = True
+    if ches:
+        plan.table3nh = curve.to_rows32(build_ches_table(curve, points, cfg))
+        _attach_ches_params(plan, cfg, device)
+    if bgmw:
+        plan.table_nh = curve.to_rows32(build_bgmw_table(curve, points, cfg))
+    if stock:
+        plan.points_rows = curve.to_rows32(points)
     return plan
 
 

@@ -1,11 +1,13 @@
-"""Scalar recoding for the CHES query: host scalar containers and the
-on-device carry-speculative MB-radix-q recode.
+"""Scalar recoding: host scalar containers, the host CHES recode, the
+on-device carry-speculative MB-radix-q recode, and the device BGMW95 / stock
+signed q/2 recode with the r - a fold.
 
-Port of msm_blst_tpu/msm/recode.py:25-95, 229-249, 276-309. Scalars cross
-the host boundary as uint32[8, n] little-endian words (numpy, as in the JAX
-package) and live on the device as int32[8, n] with the same bits
-(`to_device`). The device functions widen words to int64 and mask before
-any shift or compare, since torch compares int32 as signed.
+Port of msm_blst_tpu/msm/recode.py:25-153, 229-249, 276-356 (the host
+recode without its `native` branch). Scalars cross the host boundary as
+uint32[8, n] little-endian words (numpy, as in the JAX package) and live on
+the device as int32[8, n] with the same bits (`to_device`). The device
+functions widen words to int64 and mask before any shift or compare, since
+torch compares int32 as signed.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from ..constants import R_ORDER
+from ..device import resolve
 
 WORD_MASK = 0xFFFFFFFF
 
@@ -49,10 +52,84 @@ def random_scalars(n: int, seed: int) -> np.ndarray:
     return scalars_from_ints(out)
 
 
+_R_WORDS_NP = np.array([(R_ORDER >> (32 * i)) & WORD_MASK for i in range(8)],
+                       dtype=np.uint64)
+
+
+def reduce_mod_r_host(scalars_u32: np.ndarray) -> np.ndarray:
+    """Scalars in [r, 2^256) lose one r (2^255 < 2r for the inputs the
+    recoding sees). Vectorised over the words: a lexicographic compare from
+    the top word, then one borrow chain."""
+    s = np.asarray(scalars_u32, dtype=np.uint32).astype(np.int64)
+    r = _R_WORDS_NP.astype(np.int64)
+    ge = np.zeros(s.shape[1:], dtype=bool)
+    eq = np.ones(s.shape[1:], dtype=bool)
+    for i in range(7, -1, -1):
+        ge |= eq & (s[i] > r[i])
+        eq &= s[i] == r[i]
+    ge |= eq
+    if not ge.any():
+        return scalars_u32
+    out = np.empty_like(s)
+    borrow = np.zeros(s.shape[1:], dtype=np.int64)
+    for i in range(8):
+        d = s[i] - r[i] - borrow
+        borrow = (d < 0).astype(np.int64)
+        out[i] = d & WORD_MASK
+    return np.where(ge, out, s).astype(np.uint32)
+
+
+def qary_digits_host(scalars_u32: np.ndarray, c: int, h: int) -> np.ndarray:
+    """Standard q-ary digits: int32[n, h], digit j = bits [j*c, (j+1)*c)
+    (reference auxiliaryfunc.h:83-90)."""
+    n = scalars_u32.shape[1]
+    words = scalars_u32.astype(np.uint64)  # (8, n)
+    digits = np.zeros((n, h), dtype=np.int64)
+    mask = np.uint64((1 << c) - 1)
+    for j in range(h):
+        bit = j * c
+        w, off = bit // 32, bit % 32
+        if w >= words.shape[0]:  # windows past bit 256 are zero
+            continue
+        d = words[w] >> np.uint64(off)
+        if off + c > 32 and w + 1 < words.shape[0]:
+            d |= words[w + 1] << np.uint64(32 - off)
+        if off + c > 64 and w + 2 < words.shape[0]:
+            d |= words[w + 2] << np.uint64(64 - off)
+        digits[:, j] = (d & mask).astype(np.int64)
+    return digits.astype(np.int32)
+
+
+def ches_recode_host(scalars_u32: np.ndarray, c: int, h: int, ah: int):
+    """MB-radix-q recoding on the host (reference auxiliaryfunc.h:92-118):
+    per digit (m in {1,2,3}, bucket value b, sign), carrying +1 on alpha=1
+    digits. Returns (b int32[n, h], m int32[n, h], sign bool[n, h])."""
+    from .params import digit_conversion_table
+
+    m_t, b_t, a_t, _ = digit_conversion_table(1 << c, ah)
+    digits = qary_digits_host(reduce_mod_r_host(scalars_u32), c, h)
+    n = digits.shape[0]
+    b_out = np.zeros((n, h), dtype=np.int32)
+    m_out = np.zeros((n, h), dtype=np.int32)
+    s_out = np.zeros((n, h), dtype=bool)
+    carry = np.zeros(n, dtype=np.int32)
+    for j in range(h):
+        d = digits[:, j] + carry
+        b_out[:, j] = b_t[d]
+        m_out[:, j] = m_t[d]
+        carry = a_t[d]
+        s_out[:, j] = carry == 1
+    if s_out[:, h - 1].any():
+        raise ValueError("leading CHES digit required a carry; the config's "
+                         "a_h must prevent this")
+    return b_out, m_out, s_out
+
+
 def to_device(scalars_u32: np.ndarray, device=None) -> torch.Tensor:
-    """Host uint32[8, n] scalars -> int32[8, n] tensor on `device`."""
+    """Host uint32[8, n] scalars -> int32[8, n] tensor on `device`
+    (default: the card)."""
     a = np.ascontiguousarray(scalars_u32, dtype=np.uint32)
-    return torch.as_tensor(a.view(np.int32), device=device)
+    return torch.as_tensor(a.view(np.int32), device=resolve(device))
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +141,11 @@ _R_WORDS = [(R_ORDER >> (32 * i)) & WORD_MASK for i in range(8)]
 
 def _words64(scalars: torch.Tensor) -> torch.Tensor:
     return scalars.to(torch.int64) & WORD_MASK
+
+
+def _words32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2^32) -> int32 with the same bits."""
+    return (words - ((words >> 31) << 32)).to(torch.int32)
 
 
 def reduce_mod_r_device(scalars: torch.Tensor) -> torch.Tensor:
@@ -84,8 +166,7 @@ def reduce_mod_r_device(scalars: torch.Tensor) -> torch.Tensor:
                   | ((s[i] == _R_WORDS[i]) & (borrow != 0))).to(torch.int64)
         out.append(d)
     sub = torch.stack(out)
-    res = torch.where(ge, sub, s)
-    return (res - ((res >> 31) << 32)).to(torch.int32)
+    return _words32(torch.where(ge, sub, s))
 
 
 def qary_digits_device(scalars: torch.Tensor, c: int, h: int) -> torch.Tensor:
@@ -130,3 +211,41 @@ def ches_recode_device_packed(scalars: torch.Tensor, c: int, h: int,
             carry = torch.where(carry != 0, a1[j], a0[j])
     p = torch.where(torch.stack(carries) != 0, p1, p0)
     return p & 0xFFFFFF, (p >> 24) & 3, ((p >> 26) & 1) == 1
+
+
+def fold_r_minus_a_device(scalars: torch.Tensor):
+    """The group-order negation trick (reference main_p1.cpp:311-356): where
+    the scalar's top 64 bits exceed 2^62, a becomes r - a and the flip mask
+    inverts every digit sign. int32[8, n] in; (folded int32[8, n], flip
+    bool[n]) out. The top-word compare with 2^30 is unsigned."""
+    s = _words64(scalars)
+    hi = 1 << 30
+    flip = (s[7] > hi) | ((s[7] == hi) & (s[6] > 0))
+    out = []
+    borrow = torch.zeros_like(s[0])
+    for i in range(8):
+        d = (_R_WORDS[i] - s[i] - borrow) & WORD_MASK
+        borrow = ((s[i] > _R_WORDS[i])
+                  | ((s[i] == _R_WORDS[i]) & (borrow != 0))).to(torch.int64)
+        out.append(d)
+    return _words32(torch.where(flip, torch.stack(out), s)), flip
+
+
+def signed_digits_device(scalars: torch.Tensor, c: int, h: int):
+    """Signed q/2 recoding without the r - a fold: digits above q/2 become
+    d - q and carry one into the next window (the top window keeps its
+    carry). Returns (|digit| int32[h, n], sign bool[h, n])."""
+    q = 1 << c
+    half = q >> 1
+    digits = qary_digits_device(scalars, c, h).to(torch.int64)
+    carry = torch.zeros_like(digits[0])
+    outs = []
+    for j in range(h):
+        d = digits[j] + carry
+        if j < h - 1:
+            over = d > half
+            carry = over.to(torch.int64)
+            d = torch.where(over, d - q, d)
+        outs.append(d)
+    d = torch.stack(outs)
+    return d.abs().to(torch.int32), d < 0

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a card: each against its plain version, and
-the CHES query against the oracle. Every test takes the `dev` fixture,
-which skips it without a CUDA device. On a machine with one:
+the CHES, host-recode CHES, BGMW95 and stock queries against the oracle.
+Every test carries the `gpu` marker and takes the `dev` fixture, which
+skips it without a CUDA device. On a machine with one:
 
-    python -m pytest --noconftest tests/test_torch_cuda.py
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 (`--noconftest`: tests/conftest.py configures JAX, which that machine need
 not have; these tests import no JAX.)
@@ -14,6 +15,8 @@ import torch
 
 from msm_blst_tpu.constants import P, R_ORDER
 from msm_blst_tpu.refimpl import G1_REF
+
+pytestmark = pytest.mark.gpu
 
 
 @pytest.fixture
@@ -87,6 +90,72 @@ def test_scan_kernels_match_plain(dev):
     want = cuda_scan.xyzz_scan_level_plain(G1, cols)
     for gp, wp in zip(got, want):
         assert all(torch.equal(a, b) for a, b in zip(gp, wp))
+
+
+def test_seg_kernels_match_plain(dev):
+    """K5, both variants, on sorted duplicate-heavy keys with a point four
+    times in one run (a doubling), a cancellation and pads: heads, tails,
+    keys and the bucket array updated in place equal the plain version's."""
+    from msm_blst_tpu_torch.curves import G1, AffinePoint, XyzzPoint
+    from msm_blst_tpu_torch.msm import cuda_scan
+
+    c, n_ch, n_buckets = 6, 256, 300
+    rng = np.random.default_rng(3)
+    rows = G1.to_rows32(_points(32, dev)).XY
+    slots = torch.as_tensor(rng.integers(0, 32, c * n_ch), device=dev)
+    slots[10:14] = slots[10]
+    keys = torch.as_tensor(np.sort(rng.integers(0, n_buckets, c * n_ch)),
+                           dtype=torch.int32, device=dev)
+    keys[10:14] = keys[10]
+    keys[-5:] = n_buckets
+    signs = torch.as_tensor(rng.integers(0, 2, c * n_ch), dtype=torch.int32,
+                            device=dev)
+    signs[12] = 1 - signs[11]
+
+    def to_cols(x):  # lane k holds elements k*c .. k*c + c-1
+        return x.reshape(n_ch, c, *x.shape[1:]).transpose(0, 1).contiguous()
+
+    g = rows.index_select(0, slots)
+    rx, ry = to_cols(g[:, :12]), to_cols(g[:, 12:])
+    sc, kc = to_cols(signs), to_cols(keys)
+    lifted = G1.xyzz_double(G1.xyzz_from_affine(
+        AffinePoint(rx.reshape(-1, 12).T.contiguous(),
+                    ry.reshape(-1, 12).T.contiguous()),
+        negate=sc.reshape(-1) != 0))
+    cols = XyzzPoint(*(x.reshape(12, c, n_ch).permute(1, 0, 2).contiguous()
+                       for x in lifted))
+    for args in (((rx, ry), sc, kc), (cols, None, kc)):
+        outs = []
+        for fn in (cuda_scan.seg_level, cuda_scan.seg_level_plain):
+            buckets = cuda_scan.bucket_array(G1, n_buckets, dev)
+            head, tail, hk, tk = fn(G1, *args, buckets, n_buckets)
+            outs.append([*buckets, *head, *tail, hk, tk])
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+        assert bool((outs[0][3] != 0).any())  # some run reached a bucket
+
+
+def test_msm_algorithms_on_the_card(dev):
+    """Host-recode CHES, BGMW95 (the r - a fold: c'=5, h'=51) and stock
+    Pippenger (window 8), each with both bucket strategies."""
+    from msm_blst_tpu_torch.curves import G1
+    from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
+                                        msm_bgmw_device, msm_ches_host_recode,
+                                        msm_stock_pippenger, params, recode)
+
+    n = 64
+    plan = build_plan(G1, fixed_point_list(G1, n, device=dev),
+                      params.make_config(6, c=8, h=32, c_bgmw=5, h_bgmw=51))
+    ints = recode.scalars_to_ints(recode.random_scalars(n, seed=2))
+    ints[0], ints[1], ints[2] = 0, R_ORDER - 1, ints[3]
+    host = recode.scalars_from_ints(ints)
+    sc = recode.to_device(host, dev)
+    total = sum(s * pow(2, i + 1, R_ORDER) for i, s in enumerate(ints)) % R_ORDER
+    x, y = G1_REF.to_affine(G1_REF.jac_mult(total, G1_REF.generator_jac()))
+    for impl in ("prefix", "segmented"):
+        for jac in (msm_ches_host_recode(plan, host, bucket_impl=impl),
+                    msm_bgmw_device(plan, sc, bucket_impl=impl),
+                    msm_stock_pippenger(plan, sc, window=8, bucket_impl=impl)):
+            assert G1.affine_to_ints(G1.jac_to_affine(jac))[0] == (x.v, y.v)
 
 
 def test_msm_ches_device_on_the_card(dev):

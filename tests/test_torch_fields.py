@@ -25,6 +25,7 @@ from msm_blst_tpu_torch.fields.limb import (ints_to_array, resolve_limbs,
                                             words_to_limbs)
 
 torch.set_num_threads(1)  # small tensors: threads add contention, not speed
+CPU = torch.device("cpu")  # the port's entry points default to the card
 
 P = JFP.modulus
 CSRC = Path(__file__).resolve().parents[1] / "msm_blst_tpu_torch" / "csrc"
@@ -39,22 +40,22 @@ def _ints(n, seed):
 
 def _pair(xs):
     """The same Montgomery batch on both sides: (jax uint32[24, B], port)."""
-    return JFP.from_ints(xs), FP.from_ints(xs)
+    return JFP.from_ints(xs), FP.from_ints(xs, device=CPU)
 
 
 def test_converters_roundtrip():
     xs = _ints(33, 1)
     for mont in (True, False):
         j = np.asarray(JFP.from_ints(xs, mont=mont))
-        t = FP.from_ints(xs, mont=mont)
-        assert torch.equal(fp_from_jax(j), t)
+        t = FP.from_ints(xs, mont=mont, device=CPU)
+        assert torch.equal(fp_from_jax(j, CPU), t)
         assert np.array_equal(fp_to_jax(t), j)
-    assert FP.to_ints(FP.from_ints(xs)) == [x % P for x in xs]
+    assert FP.to_ints(FP.from_ints(xs, device=CPU)) == [x % P for x in xs]
 
 
 def test_from_ints_canonicalizes_p():
-    assert torch.equal(FP.from_ints([P]), FP.zeros((1,)))
-    assert FP.to_ints(FP.from_ints([P, P + 5])) == [0, 5]
+    assert torch.equal(FP.from_ints([P], device=CPU), FP.zeros((1,)))
+    assert FP.to_ints(FP.from_ints([P, P + 5], device=CPU)) == [0, 5]
 
 
 @pytest.mark.parametrize("op", ["add", "sub", "neg", "mul", "double", "mul3"])
@@ -72,8 +73,8 @@ def test_field_op_matches_jax(op):
 
 def test_mul_matches_montgomery_oracle():
     xs, ys = _ints(64, 4), _ints(64, 5)[::-1]
-    a = FP.from_ints(xs, mont=False)
-    b = FP.from_ints(ys, mont=False)
+    a = FP.from_ints(xs, mont=False, device=CPU)
+    b = FP.from_ints(ys, mont=False, device=CPU)
     r_inv = pow(1 << 384, -1, P)
     got = FP.to_ints(cuda_mont.mont_mul_plain(a, b, FP), mont=False)
     assert got == [x % P * (y % P) * r_inv % P for x, y in zip(xs, ys)]

@@ -31,6 +31,7 @@ from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
                                     msm_ches_device, params, recode)
 
 torch.set_num_threads(1)  # small tensors: threads add contention, not speed
+CPU = torch.device("cpu")  # the port's entry points default to the card
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures",
                         "golden_msm.json")
@@ -81,7 +82,7 @@ def test_recode_matches_jax(cfg):
     ints = recode.scalars_to_ints(recode.random_scalars(58, seed=9)) + EDGES
     host = recode.scalars_from_ints(ints)
     table = params.packed_digit_table_pairs(cfg.q, cfg.ah)
-    t = recode.to_device(host)
+    t = recode.to_device(host, CPU)
     got = recode.ches_recode_device_packed(t, cfg.c, cfg.h,
                                            torch.as_tensor(table))
     want = jax.jit(lambda s, tb: jrecode.ches_recode_device_packed(
@@ -118,9 +119,9 @@ def test_msm_matches_oracle_and_golden(case):
         ints[0], ints[1] = 0, R_ORDER - 1
         ints[2] = ints[3]
     cfg = params.make_config(max(n.bit_length() - 1, 1), **SMALL)
-    plan = build_plan(G1, fixed_point_list(G1, n), cfg)
+    plan = build_plan(G1, fixed_point_list(G1, n, device=CPU), cfg)
     jac = msm_ches_device(plan, recode.to_device(
-        recode.scalars_from_ints(ints)))
+        recode.scalars_from_ints(ints), CPU))
     aff = G1.affine_to_ints(G1.jac_to_affine(jac))[0]
     assert aff == _oracle(ints)
     if case["serialized"] is not None:

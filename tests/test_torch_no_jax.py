@@ -1,5 +1,6 @@
-"""The port stands apart from JAX and from the JAX package, and its chip
-smoke refuses to run without a card or without the repository.
+"""The port stands apart from JAX and from the JAX package, its entry
+points refuse to run without a card unless the caller asks for the CPU, and
+its chip smoke refuses to run without a card or without the repository.
 
 Both run in subprocesses, so this test process's own imports (pytest's
 conftest imports jax) do not count.
@@ -29,7 +30,18 @@ def test_port_modules_never_import_jax():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 17  # every module of the package
+    assert int(r.stdout.strip()) >= 22  # every module of the package
+
+
+def test_entry_points_default_to_the_card():
+    code = ("from msm_blst_tpu_torch.curves import G1\n"
+            "from msm_blst_tpu_torch.msm import fixed_point_list\n"
+            "fixed_point_list(G1, 4)\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "RuntimeError" in r.stderr and "no CUDA device" in r.stderr, r.stderr
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -23,6 +23,7 @@ from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
                                     msm_ches_device, params, recode)
 
 torch.set_num_threads(1)  # small tensors: threads add contention, not speed
+CPU = torch.device("cpu")  # the port's entry points default to the card
 
 N = 16
 SMALL = dict(c=8, h=32, c_bgmw=8, h_bgmw=32)
@@ -39,13 +40,13 @@ def jax_plan():
 
 @pytest.fixture(scope="module")
 def port_plan():
-    points = fixed_point_list(G1, N)
+    points = fixed_point_list(G1, N, device=CPU)
     return points, build_plan(G1, points, params.make_config(4, **SMALL))
 
 
 def test_fixed_points_match_jax(jax_plan, port_plan):
     for got, want in zip(port_plan[0], jax_plan[0]):
-        assert torch.equal(got, fp_from_jax(np.asarray(want)))
+        assert torch.equal(got, fp_from_jax(np.asarray(want), CPU))
 
 
 def test_build_plan_table_matches_jax(jax_plan, port_plan):
@@ -61,11 +62,11 @@ def test_plan_from_jax_computes_the_same_msm(jax_plan, port_plan):
     plan = plan_from_jax({"table3nh": np.asarray(jp.table3nh.XY),
                           "packed_table": np.asarray(jp.packed_table),
                           "bucket_gaps": jp.bucket_gaps},
-                         params.make_config(4, **SMALL))
+                         params.make_config(4, **SMALL), device=CPU)
     sc = recode.random_scalars(N, seed=7)
     ints = recode.scalars_to_ints(sc)
     total = sum(s * pow(2, i + 1, R_ORDER) for i, s in enumerate(ints)) % R_ORDER
     x, y = G1_REF.to_affine(G1_REF.jac_mult(total, G1_REF.generator_jac()))
     for p in (plan, port_plan[1]):
-        jac = msm_ches_device(p, recode.to_device(sc))
+        jac = msm_ches_device(p, recode.to_device(sc, CPU))
         assert G1.affine_to_ints(G1.jac_to_affine(jac))[0] == (x.v, y.v)

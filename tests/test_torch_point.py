@@ -21,6 +21,7 @@ from msm_blst_tpu_torch.convert import fp_from_jax, fp_to_jax
 from msm_blst_tpu_torch.curves import G1, AffinePoint, XyzzPoint, cuda_point
 
 torch.set_num_threads(1)  # small tensors: threads add contention, not speed
+CPU = torch.device("cpu")  # the port's entry points default to the card
 
 B = 16
 
@@ -56,7 +57,7 @@ def _same(port_pt, jax_pt):
 
 
 def _port(jpt, cls):
-    return cls(*(fp_from_jax(np.asarray(c)) for c in jpt))
+    return cls(*(fp_from_jax(np.asarray(c), CPU) for c in jpt))
 
 
 @pytest.mark.parametrize("op", ["dadd_affine", "dadd", "double"])

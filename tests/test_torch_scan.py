@@ -6,6 +6,9 @@
 * xyzz_scan_level (K4's plain version) against a JAX column loop of
   G1.xyzz_dadd: the same words.
 * fold_xyzz / scan_fold_axis against JAX msm/scan, in affine.
+* engine.integrate_weighted_consecutive (folds and suffix scans over the
+  bucket grid) against JAX's, in affine: K <= 64 (the small path) and
+  K > 64 (the grid).
 * prefix_scan_xyzz / suffix_scan_xyzz against JAX utils/scans prefix_scan
   (suffix_scan is, by its definition there, the prefix scan of the flipped
   stream, flipped back; the test forms it so to reuse one compilation).
@@ -19,11 +22,13 @@ import random
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from msm_blst_tpu.constants import P
 from msm_blst_tpu.curves import G1 as JG1
 from msm_blst_tpu.curves.ops import AffinePoint as JAffine
+from msm_blst_tpu.msm import engine as jengine
 from msm_blst_tpu.msm import scan as jscan
 from msm_blst_tpu.msm.prefix_pipeline import local_prefix
 from msm_blst_tpu.refimpl import G1_REF
@@ -32,11 +37,13 @@ from msm_blst_tpu_torch.convert import fp_from_jax, fp_to_jax
 from msm_blst_tpu_torch.curves import G1, XyzzPoint
 from msm_blst_tpu_torch.fields.limb import array_to_ints
 from msm_blst_tpu_torch.msm import cuda_scan
+from msm_blst_tpu_torch.msm.engine import integrate_weighted_consecutive
 from msm_blst_tpu_torch.msm.scan import (fold_xyzz, scan_fold_axis,
                                          suffix_scan_xyzz)
 from msm_blst_tpu_torch.utils import scans
 
 torch.set_num_threads(1)  # small tensors: threads add contention, not speed
+CPU = torch.device("cpu")  # the port's entry points default to the card
 
 N_BASE = 12  # distinct base points; streams draw from them with repeats
 
@@ -85,7 +92,7 @@ def _affine_ints(pt):
 
 
 def _port(jpt):
-    return XyzzPoint(*(fp_from_jax(np.asarray(c)) for c in jpt))
+    return XyzzPoint(*(fp_from_jax(np.asarray(c), CPU) for c in jpt))
 
 
 def test_affine_prefix_level_matches_jax_local_prefix():
@@ -95,14 +102,14 @@ def test_affine_prefix_level_matches_jax_local_prefix():
     cols = JAffine(*(x.reshape(24, c, n_ch).transpose(1, 0, 2) for x in jaff))
     jsg = jnp.asarray(sgn.reshape(c, n_ch))
     jlocal, jtails = jax.jit(lambda a, s: local_prefix(JG1, a, s)[:2])(cols, jsg)
-    taff = G1.affine_from_ints(pts)
+    taff = G1.affine_from_ints(pts, device=CPU)
     rows_x = taff.X.T.reshape(c, n_ch, 12).contiguous()
     rows_y = taff.Y.T.reshape(c, n_ch, 12).contiguous()
     local, tails = cuda_scan.affine_prefix_level(
         G1, rows_x, rows_y, torch.as_tensor(sgn.reshape(c, n_ch)))
     # JAX local coords (c, 24, n_ch) -> port rows (c, n_ch, 12) per coord
     want_rows = torch.cat([
-        fp_from_jax(np.moveaxis(np.asarray(x), 1, 0)).permute(1, 2, 0)
+        fp_from_jax(np.moveaxis(np.asarray(x), 1, 0), CPU).permute(1, 2, 0)
         for x in jlocal], dim=2)
     assert torch.equal(local, want_rows)
     for got, want in zip(tails, jtails):
@@ -137,7 +144,7 @@ def test_xyzz_scan_level_matches_jax_column_loop():
 
 
 def test_prefix_and_suffix_scans_match_jax():
-    n = 256  # _shape_stream: c=2 columns over 128 lanes, then the carry
+    n = 256  # _shape_stream: c=32 columns over 8 lanes, then the carry
     js = _xyzz_stream(n, 4)
     tp = _port(js)
     jprefix = jax.jit(lambda p: jscans.prefix_scan(JG1.xyzz_dadd, p))
@@ -160,10 +167,18 @@ def test_folds_match_jax():
     rows, cols = 3, 16
     js = _xyzz_stream(rows * cols, 5)
     grid = type(js)(*(x.reshape(24, rows, cols) for x in js))
-    tgrid = XyzzPoint(*(fp_from_jax(np.asarray(x)) for x in grid))
+    tgrid = XyzzPoint(*(fp_from_jax(np.asarray(x), CPU) for x in grid))
     for axis in (-1, -2):
         want = jax.jit(lambda g, a=axis: jscan.scan_fold_axis(JG1, g, a))(grid)
         got = scan_fold_axis(G1, tgrid, axis)
         assert _affine_ints(got) == _affine_ints(_port(want))
     want = jax.jit(lambda p: jscan.fold_xyzz(JG1, p))(js)
     assert _affine_ints(fold_xyzz(G1, _port(js))) == _affine_ints(_port(want))
+
+
+@pytest.mark.parametrize("K", [40, 100])
+def test_integrate_weighted_consecutive_matches_jax(K):
+    js = _xyzz_stream(K, 6)
+    want = jax.jit(lambda b: jengine.integrate_weighted_consecutive(JG1, b))(js)
+    got = integrate_weighted_consecutive(G1, _port(js))
+    assert _affine_ints(got) == _affine_ints(_port(want))
