@@ -8,20 +8,24 @@ Phases, each reported on its own lines:
      device;
   2. build: compiles msm_blst_tpu_torch/csrc/*.cu (one nvcc per source, in
      parallel) and reports the time and each kernel's registers and spills;
-  3. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, exact equality, with CUDA-event times of both and the least time
-     the card could take for the same work (bytes or integer multiply-adds);
+  3. kernels: each CUDA kernel, G1 and G2 instances, against its plain
+     PyTorch version on the card at the shapes of the n=2^16 paths, exact
+     equality, with CUDA-event times of both and the least time the card
+     could take for the same work (bytes or integer multiply-adds);
   4. main path: the G1 CHES n=2^16 query (params.CONFIGS[16]) — fixed
      points, the plan, one warm-up and five timed scalar sets — with every
      result checked against the pure-Python oracle and every kernel of the
      path launched;
-  5. algorithms: one plan with the CHES, BGMW95 and stock tables at the same
-     n and config; host-recode CHES, BGMW95 and stock Pippenger, BGMW and
-     stock with both bucket strategies (prefix, segmented), each query
+  5. algorithms: one G1 plan with the CHES, BGMW95 and stock tables at the
+     same n and config; host-recode CHES, BGMW95 and stock Pippenger, BGMW
+     and stock with both bucket strategies (prefix, segmented), each query
      checked against the oracle; the plan build and each path count their
      launches on their own: every kernel of the path (K5's two variants on
      the segmented ones) launched, none of the other strategy's;
-  6. a JSON line of per-kernel results, then the final status line.
+  6. g2: phases 4 and 5 over G2 at the same n and config, each path
+     launching the G2 kernels (and K1, which Fp2's products run through)
+     and none of the G1 point and level kernels;
+  7. a JSON line of per-kernel results, then the final status line.
 
 It catches no exception: any failure exits non-zero before the last line.
 """
@@ -38,6 +42,7 @@ N_LOG = 16
 WARM_SEED = 1
 SEEDS = (2, 3, 4, 5, 6)
 ALGO_SEEDS = (7, 8, 9)  # timed scalar sets of phase 5 (stock: the first two)
+G2_ALGO_SEEDS = (7, 8)  # and of its G2 run (stock: the first one)
 
 # The least time the card could take (the bound): the larger of the bytes a
 # kernel must move over the memory rate, and its integer multiply-adds over
@@ -48,10 +53,36 @@ SMS, IMAD_PER_CLOCK = 132, 64
 # A 12-word CIOS Montgomery product (csrc/fp.cuh mont_mul): 288 word
 # products with 64-bit results (two multiply-adds each) and 12 low halves.
 IMAD_PER_MONT = 2 * 288 + 12
-# Montgomery products of the point formulas (csrc/fp.cuh), without their
-# doubling branch (taken by the few lanes that add a point to itself).
-MONT_DADD_AFFINE, MONT_DADD, MONT_DOUBLE = 10, 14, 9
+# Field multiplies of the point formulas (csrc/fp.cuh, curves/ops.py), as
+# (general products, squares), without their doubling branch (taken by the
+# few lanes that add a point to itself).
+DADD_AFFINE, DADD, DOUBLE = (8, 2), (12, 2), (6, 3)
 FP_BYTES = 48
+
+
+class CurveCase:
+    """What the kernel checks and the paths need of one curve: the curve,
+    its K2-K5 (kernels.CURVE_KERNELS, by op), bytes per field element and
+    the Montgomery products a field product and a square need at least."""
+
+    def __init__(self, name: str):
+        from msm_blst_tpu_torch import curves, kernels
+
+        self.curve = getattr(curves, name)
+        self.kernels = kernels.CURVE_KERNELS[name]
+        self.elem_bytes = 4 * self.curve.F.n_words
+        # Fp (F.lead (12,)): one each; Fp2 (F.lead (2, 12)): Karatsuba's
+        # three for a product, (a0 + a1)(a0 - a1) and a0 a1 for a square
+        self.per_mul, self.per_sqr = ((1, 1) if len(self.curve.F.lead) == 1
+                                      else (3, 2))
+
+    def name(self, op: str) -> str:
+        """The name the JSON line gives this curve's kernel `op`."""
+        return self.kernels[op].name
+
+    def mont(self, formula) -> int:
+        """Montgomery products of one formula, (products, squares)."""
+        return self.per_mul * formula[0] + self.per_sqr * formula[1]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -135,11 +166,10 @@ def _random_fp(n: int, seed: int, dev) -> torch.Tensor:
 
 
 def phase_kernels(dev):
-    from msm_blst_tpu_torch.curves import G1, XyzzPoint
-    from msm_blst_tpu_torch.curves import cuda_point
+    """Every kernel against its plain version: K1, then K2-K5 for G1 and for
+    G2 at the shapes of their n = 2^16 paths."""
     from msm_blst_tpu_torch.fields import cuda_mont
     from msm_blst_tpu_torch.fields.limb import FP
-    from msm_blst_tpu_torch.msm import cuda_scan, fixed_point_list
 
     results = {}
 
@@ -167,79 +197,94 @@ def phase_kernels(dev):
     record("mont_mul", lambda: cuda_mont.mont_mul(a, b, FP),
            lambda: cuda_mont.mont_mul_plain(a, b, FP), 20, 2,
            3 * FP_BYTES * a.shape[1], a.shape[1])
+    for name in ("G1", "G2"):
+        curve_kernels(dev, CurveCase(name), record)
+    return results
+
+
+def curve_kernels(dev, case, record):
+    """K2 at 2^16 lanes, K3 at the CHES path's level (c=112, n_ch=8192), K4
+    at its integration scan's level (c=54, n_ch=2048) and K5 at BGMW's first
+    two levels, for one curve."""
+    from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
+    from msm_blst_tpu_torch.msm import cuda_scan, fixed_point_list
+
+    curve, E = case.curve, case.elem_bytes
+    W = curve.F.n_words
 
     # K2 on 2^16 lanes: lane 0 infinity, lane 1 P+P, lane 2 P-P
     B = 1 << 16
-    pts = fixed_point_list(G1, B, device=dev)
+    pts = fixed_point_list(curve, B, device=dev)
     lane = torch.arange(B, device=dev)
-    base = G1.xyzz_from_affine(pts)
-    acc = G1.xyzz_double(base)
-    acc = G1.select(lane == 0, G1.xyzz_inf((B,), dev), acc)
-    acc = G1.select((lane == 1) | (lane == 2), base, acc)
+    base = curve.xyzz_from_affine(pts)
+    acc = curve.xyzz_double(base)
+    acc = curve.select(lane == 0, curve.xyzz_inf((B,), dev), acc)
+    acc = curve.select((lane == 1) | (lane == 2), base, acc)
     signs = (lane % 3 == 2)
-    other = G1.xyzz_from_affine(pts, negate=signs)
-    record("point_dadd_affine",
-           lambda: tuple(cuda_point.xyzz_dadd_affine(G1, acc, pts, signs)),
-           lambda: tuple(cuda_point.xyzz_dadd_affine_plain(G1, acc, pts, signs)),
-           20, 2, (10 * FP_BYTES + 4) * B, MONT_DADD_AFFINE * B)
-    record("point_dadd",
-           lambda: tuple(cuda_point.xyzz_dadd(G1, acc, other)),
-           lambda: tuple(cuda_point.xyzz_dadd_plain(G1, acc, other)), 20, 2,
-           12 * FP_BYTES * B, MONT_DADD * B)
-    record("point_double",
-           lambda: tuple(cuda_point.xyzz_double(G1, acc)),
-           lambda: tuple(cuda_point.xyzz_double_plain(G1, acc)), 20, 2,
-           8 * FP_BYTES * B, MONT_DOUBLE * B)
+    other = curve.xyzz_from_affine(pts, negate=signs)
+    record(case.name("point_dadd_affine"),
+           lambda: tuple(cuda_point.xyzz_dadd_affine(curve, acc, pts, signs)),
+           lambda: tuple(cuda_point.xyzz_dadd_affine_plain(curve, acc, pts,
+                                                           signs)),
+           20, 2, (10 * E + 4) * B, case.mont(DADD_AFFINE) * B)
+    record(case.name("point_dadd"),
+           lambda: tuple(cuda_point.xyzz_dadd(curve, acc, other)),
+           lambda: tuple(cuda_point.xyzz_dadd_plain(curve, acc, other)), 20, 2,
+           12 * E * B, case.mont(DADD) * B)
+    record(case.name("point_double"),
+           lambda: tuple(cuda_point.xyzz_double(curve, acc)),
+           lambda: tuple(cuda_point.xyzz_double_plain(curve, acc)), 20, 2,
+           8 * E * B, case.mont(DOUBLE) * B)
 
     # K3 at the main path's level shape (c=112, n_ch=8192)
     c, n_ch = 112, 8192
     rng = np.random.default_rng(13)
-    rows = G1.to_rows32(pts).XY
+    rows = curve.to_rows32(pts).XY
     slots = torch.as_tensor(rng.integers(0, B, size=c * n_ch), device=dev)
     slots[torch.arange(4, device=dev) * n_ch] = 7  # lane 0: P, 2P, P, inf
     g = rows.index_select(0, slots)
-    rx = g[:, :12].reshape(c, n_ch, 12).contiguous()
-    ry = g[:, 12:].reshape(c, n_ch, 12).contiguous()
+    rx = g[:, :W].reshape(c, n_ch, W).contiguous()
+    ry = g[:, W:].reshape(c, n_ch, W).contiguous()
     sg = torch.as_tensor(rng.integers(0, 2, size=(c, n_ch)), device=dev)
     sg[:2, 0] = 0
     sg[2:4, 0] = 1
 
     def k3():
-        local, t = cuda_scan.affine_prefix_level(G1, rx, ry, sg)
+        local, t = cuda_scan.affine_prefix_level(curve, rx, ry, sg)
         return (local,) + tuple(t)
 
     def k3_plain():
-        local, t = cuda_scan.affine_prefix_level_plain(G1, rx, ry, sg)
+        local, t = cuda_scan.affine_prefix_level_plain(curve, rx, ry, sg)
         return (local,) + tuple(t)
 
-    record("affine_prefix_level", k3, k3_plain, 5, 1,
-           c * n_ch * (6 * FP_BYTES + 4) + 4 * FP_BYTES * n_ch,
-           MONT_DADD_AFFINE * (c - 1) * n_ch)
+    record(case.name("affine_prefix_level"), k3, k3_plain, 5, 1,
+           c * n_ch * (6 * E + 4) + 4 * E * n_ch,
+           case.mont(DADD_AFFINE) * (c - 1) * n_ch)
 
     # K4 at the integration suffix scan's level shape (c=54, n_ch=2048)
     c4, n4 = cuda_scan._shape_stream(109243)
-    local = k3()[0].reshape(-1, 4, 12)[: c4 * n4]
-    cols = XyzzPoint(*(local[:, i].reshape(c4, n4, 12).permute(0, 2, 1)
-                       .contiguous() for i in range(4)))
+    local = k3()[0].reshape(-1, 4, W)[: c4 * n4]
+    cols = XyzzPoint(*(local[:, i].reshape(c4, n4, W).permute(0, 2, 1)
+                       .reshape((c4,) + curve.F.lead + (n4,)).contiguous()
+                       for i in range(4)))
 
     def k4():
-        s, t = cuda_scan.xyzz_scan_level(G1, cols)
+        s, t = cuda_scan.xyzz_scan_level(curve, cols)
         return tuple(s) + tuple(t)
 
     def k4_plain():
-        s, t = cuda_scan.xyzz_scan_level_plain(G1, cols)
+        s, t = cuda_scan.xyzz_scan_level_plain(curve, cols)
         return tuple(s) + tuple(t)
 
-    record("xyzz_scan_level", k4, k4_plain, 5, 1,
-           c4 * n4 * 8 * FP_BYTES + 4 * FP_BYTES * n4,
-           MONT_DADD * (c4 - 1) * n4)
+    record(case.name("xyzz_scan_level"), k4, k4_plain, 5, 1,
+           c4 * n4 * 8 * E + 4 * E * n4, case.mont(DADD) * (c4 - 1) * n4)
 
     # K5 at BGMW's first two levels: (60, 16384) and (32, 1024)
-    phase_seg_kernels(dev, record, rows, rng)
-    return results
+    phase_seg_kernels(dev, case, record, rows, rng)
 
 
-def seg_work(keys, n_buckets: int, in_bytes: int, mont_add: int):
+def seg_work(keys, n_buckets: int, in_bytes: int, mont_add: int,
+             elem_bytes: int = FP_BYTES):
     """(bytes, Montgomery products) of one K5 level on these keys: every
     element read once; each lane writes head, tail and two keys; every
     complete run one bucket; a column that keeps its run adds a point."""
@@ -247,8 +292,8 @@ def seg_work(keys, n_buckets: int, in_bytes: int, mont_add: int):
     closing = keys[1:] != keys[:-1]
     lanes_closing = int(closing.any(dim=0).sum())
     emissions = int(closing.sum()) - lanes_closing
-    n_bytes = (c * n_ch * (in_bytes + 4) + n_ch * (8 * FP_BYTES + 8)
-               + 4 * FP_BYTES * emissions)
+    n_bytes = (c * n_ch * (in_bytes + 4) + n_ch * (8 * elem_bytes + 8)
+               + 4 * elem_bytes * emissions)
     return n_bytes, mont_add * int((~closing).sum())
 
 
@@ -282,16 +327,17 @@ def seg_stream(rng, n_rows: int, N: int, c: int, n_buckets: int):
     return slots, keys.astype(np.int32), signs.astype(np.int32), meets
 
 
-def phase_seg_kernels(dev, record, rows, rng):
+def phase_seg_kernels(dev, case, record, rows, rng):
     """K5 against its plain version at the first two levels of BGMW's path
     (n = 2^16, c' = 17, h' = 15: 983,040 digits over 2^16+1 buckets): the
     affine level (c=60, n_ch=16384) on real table rows (seg_stream), and
     the xyzz level (32, 1024) on that level's own heads and tails, shaped by
     the path's own code (cuda_scan.level_cols). The bucket arrays must agree
     too."""
-    from msm_blst_tpu_torch.curves import G1, PackedRows32
+    from msm_blst_tpu_torch.curves import PackedRows32
     from msm_blst_tpu_torch.msm import cuda_scan
 
+    curve, E = case.curve, case.elem_bytes
     n_buckets = (1 << 16) + 1
     slots, keys, signs, meets = seg_stream(rng, rows.shape[0], 60 * 16384,
                                            60, n_buckets)
@@ -299,15 +345,15 @@ def phase_seg_kernels(dev, record, rows, rng):
                                                                device=dev)))
     sg = torch.as_tensor(signs, device=dev)
     ky = torch.as_tensor(keys, device=dev)
-    level1 = cuda_scan.level_cols(G1, stream, sg, ky, n_buckets)
+    level1 = cuda_scan.level_cols(curve, stream, sg, ky, n_buckets)
     nxt, nkeys = cuda_scan._run_level(
-        G1, stream, sg, ky, cuda_scan.bucket_array(G1, n_buckets, dev),
+        curve, stream, sg, ky, cuda_scan.bucket_array(curve, n_buckets, dev),
         n_buckets)
     for m in meets:  # the pair the xyzz level doubles or cancels
-        if nkeys[m] != nkeys[m + 1] or not torch.equal(nxt.X[:, m],
-                                                       nxt.X[:, m + 1]):
+        if nkeys[m] != nkeys[m + 1] or not torch.equal(nxt.X[..., m],
+                                                       nxt.X[..., m + 1]):
             raise AssertionError(f"seg_level_xyzz input: no meeting pair at {m}")
-    level2 = cuda_scan.level_cols(G1, nxt, None, nkeys, n_buckets)
+    level2 = cuda_scan.level_cols(curve, nxt, None, nkeys, n_buckets)
     for (_, _, kc), shape in ((level1, (60, 16384)), (level2, (32, 1024))):
         if tuple(kc.shape) != shape:
             raise AssertionError(f"K5 level shape {tuple(kc.shape)} != {shape}")
@@ -315,37 +361,28 @@ def phase_seg_kernels(dev, record, rows, rng):
     def runs(cols, sg, kc, n_buckets, fn):
         # the emission stores are idempotent, so repeated calls may share
         # one bucket array
-        buckets = cuda_scan.bucket_array(G1, n_buckets, dev)
+        buckets = cuda_scan.bucket_array(curve, n_buckets, dev)
 
         def go():
-            head, tail, hk, tk = fn(G1, cols, sg, kc, buckets, n_buckets)
+            head, tail, hk, tk = fn(curve, cols, sg, kc, buckets, n_buckets)
             return tuple(buckets) + tuple(head) + tuple(tail) + (hk, tk)
         return go
 
-    for name, (cols, sg, kc), in_bytes, mont in (
-            ("seg_level_affine", level1, 2 * FP_BYTES + 4, MONT_DADD_AFFINE),
-            ("seg_level_xyzz", level2, 4 * FP_BYTES, MONT_DADD)):
-        record(name, runs(cols, sg, kc, n_buckets, cuda_scan.seg_level),
+    for op, (cols, sg, kc), in_bytes, formula in (
+            ("seg_level_affine", level1, 2 * E + 4, DADD_AFFINE),
+            ("seg_level_xyzz", level2, 4 * E, DADD)):
+        record(case.name(op),
+               runs(cols, sg, kc, n_buckets, cuda_scan.seg_level),
                runs(cols, sg, kc, n_buckets, cuda_scan.seg_level_plain), 5, 1,
-               *seg_work(kc, n_buckets, in_bytes, mont))
+               *seg_work(kc, n_buckets, in_bytes, case.mont(formula), E))
 
 
 def counters():
-    """Each kernel's launch counter, by the name the JSON line gives it."""
-    from msm_blst_tpu_torch.curves import cuda_point
-    from msm_blst_tpu_torch.fields import cuda_mont
-    from msm_blst_tpu_torch.msm import cuda_scan
+    """Each kernel, with its launch counter, by the name the JSON line gives
+    it."""
+    from msm_blst_tpu_torch import kernels
 
-    return {
-        "mont_mul": cuda_mont.MONT_MUL,
-        "point_dadd_affine": cuda_point.DADD_AFFINE,
-        "point_dadd": cuda_point.DADD,
-        "point_double": cuda_point.DOUBLE,
-        "affine_prefix_level": cuda_scan.AFFINE_PREFIX,
-        "xyzz_scan_level": cuda_scan.XYZZ_SCAN,
-        "seg_level_affine": cuda_scan.SEG_AFFINE,
-        "seg_level_xyzz": cuda_scan.SEG_XYZZ,
-    }
+    return {k.name: k for k in kernels.ALL_KERNELS}
 
 
 def reset_counts():
@@ -356,7 +393,8 @@ def reset_counts():
 
 def read_counts(path: str, names, unused=()) -> dict:
     """The path's launch counts; fails if one of its kernels (`names`) never
-    ran, or if a kernel of the other bucket strategy (`unused`) did."""
+    ran, or if a kernel it must not run (`unused`: the other bucket
+    strategy's, the other curve's) did."""
     launches = {name: k.launches for name, k in counters().items()}
     print(f"{path}: launches {launches}")
     idle = [name for name in names if launches[name] == 0]
@@ -364,54 +402,69 @@ def read_counts(path: str, names, unused=()) -> dict:
         raise AssertionError(f"{path} never launched: {idle}")
     stray = [name for name in unused if launches[name] != 0]
     if stray:
-        raise AssertionError(f"{path} launched the other strategy's {stray}")
+        raise AssertionError(f"{path} launched {stray}")
     return launches
 
 
 # The kernels each query launches: the integration's folds, doublings and
 # suffix scan and the conversion to Jacobian, then those of its bucket
-# strategy.
-QUERY_KERNELS = ["mont_mul", "point_dadd", "point_double", "xyzz_scan_level"]
+# strategy. By op, for either curve; K1 (mont_mul) serves both.
+QUERY_KERNELS = ["point_dadd", "point_double", "xyzz_scan_level"]
 STRATEGY_KERNELS = {"prefix": ["affine_prefix_level"],
                     "segmented": ["seg_level_affine", "seg_level_xyzz"]}
 
 
-def oracle_check(n: int):
+def path_kernels(case, ops, impl=None):
+    """(kernels the path must launch, kernels it must not), by name: K1 and
+    the curve's kernels of `ops`; not another curve's K2-K5, nor the other
+    bucket strategy's (when `impl` is given)."""
+    unused = [k.name for k in counters().values()
+              if k.op in case.kernels and k is not case.kernels[k.op]]
+    if impl is not None:
+        unused += [case.name(op) for s, ops_s in STRATEGY_KERNELS.items()
+                   if s != impl for op in ops_s]
+    return ["mont_mul"] + [case.name(op) for op in ops], unused
+
+
+def oracle_check(case, n: int):
     """check(seed, jac): the query's result must be the oracle's
     (sum s_i 2^(i+1) mod r) * G for the scalars of `seed`."""
-    from msm_blst_tpu_torch import refimpl as ref
+    from msm_blst_tpu_torch import refimpl
     from msm_blst_tpu_torch.constants import R_ORDER
-    from msm_blst_tpu_torch.curves import G1
     from msm_blst_tpu_torch.msm import recode
 
+    ref = refimpl.CURVES[case.curve.name]
     weights = [pow(2, i + 1, R_ORDER) for i in range(n)]
 
     def check(seed, jac):
         ints = recode.scalars_to_ints(recode.random_scalars(n, seed))
         total = sum(s * e for s, e in zip(ints, weights)) % R_ORDER
-        got = G1.affine_to_ints(G1.jac_to_affine(jac))[0]
+        got = case.curve.affine_to_ints(case.curve.jac_to_affine(jac))[0]
         if got != ref.mult(total):
-            raise AssertionError(f"seed {seed}: MSM differs from the oracle")
+            raise AssertionError(f"{case.curve.name} seed {seed}: MSM "
+                                 "differs from the oracle")
     return check
 
 
-def phase_main_path(dev):
-    from msm_blst_tpu_torch.curves import G1
+def phase_main_path(dev, case):
+    """The CHES device-recode query at n = 2^16 (CONFIGS[16]): fixed
+    points, the CHES-only plan, one warm-up and five timed scalar sets."""
     from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
                                         msm_ches_device, params, recode)
 
+    curve, label = case.curve, f"{case.curve.name} main path"
     n = 1 << N_LOG
     cfg = params.CONFIGS[N_LOG]
-    check = oracle_check(n)
+    check = oracle_check(case, n)
     scalars = {s: recode.to_device(recode.random_scalars(n, s), dev)
                for s in (WARM_SEED,) + SEEDS}
     reset_counts()
     t0 = time.perf_counter()
-    points = fixed_point_list(G1, n, device=dev)
-    plan = build_plan(G1, points, cfg, bgmw=False, stock=False)
+    points = fixed_point_list(curve, n, device=dev)
+    plan = build_plan(curve, points, cfg, bgmw=False, stock=False)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    print(f"main path: n=2^{N_LOG}, c={cfg.c}, h={cfg.h}, |B|={cfg.b_size}, "
+    print(f"{label}: n=2^{N_LOG}, c={cfg.c}, h={cfg.h}, |B|={cfg.b_size}, "
           f"table {tuple(plan.table3nh.XY.shape)}; fixed points + plan "
           f"{build_s:.3f} s")
     check(WARM_SEED, msm_ches_device(plan, scalars[WARM_SEED]))
@@ -423,92 +476,88 @@ def phase_main_path(dev):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         check(s, jac)
-    print(f"main path: {len(SEEDS)} queries equal to the oracle; query mean "
+    print(f"{label}: {len(SEEDS)} queries equal to the oracle; query mean "
           f"{1e3 * sum(times) / len(times):.3f} ms, min {1e3 * min(times):.3f}"
           f" ms")
-    return read_counts("main path", [
-        "mont_mul", "point_dadd_affine", "point_dadd", "point_double",
-        "affine_prefix_level", "xyzz_scan_level"],
-        unused=STRATEGY_KERNELS["segmented"])
+    return read_counts(label, *path_kernels(
+        case, ["point_dadd_affine"] + QUERY_KERNELS + ["affine_prefix_level"],
+        "prefix"))
 
 
-def phase_algorithms(dev):
+def phase_algorithms(dev, case, seeds):
     """Host-recode CHES, BGMW95 and stock Pippenger at n = 2^16 on one plan
-    holding all three tables, BGMW and stock with both bucket strategies.
-    The plan build and each query path count their launches on their own
-    (counts set to 0 just before, read just after). Returns the counts by
-    path."""
-    from msm_blst_tpu_torch.curves import G1
+    holding all three tables, BGMW and stock with both bucket strategies
+    (stock on all but the last of `seeds`). The plan build and each
+    query path count their launches on their own (counts set to 0 just
+    before, read just after). Returns the counts by path."""
     from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
                                         msm_bgmw_device, msm_ches_host_recode,
                                         msm_stock_pippenger, params, recode)
 
+    curve = case.curve
+    label = f"{curve.name} algorithms"
     n = 1 << N_LOG
     cfg = params.CONFIGS[N_LOG]
-    check = oracle_check(n)
-    host = {s: recode.random_scalars(n, s) for s in (WARM_SEED,) + ALGO_SEEDS}
+    check = oracle_check(case, n)
+    host = {s: recode.random_scalars(n, s) for s in (WARM_SEED,) + seeds}
     scalars = {s: recode.to_device(a, dev) for s, a in host.items()}
     reset_counts()
     t0 = time.perf_counter()
-    plan = build_plan(G1, fixed_point_list(G1, n, device=dev), cfg)
+    plan = build_plan(curve, fixed_point_list(curve, n, device=dev), cfg)
     torch.cuda.synchronize()
-    print(f"algorithms: n=2^{N_LOG}, plan with 3nh {tuple(plan.table3nh.XY.shape)},"
+    print(f"{label}: n=2^{N_LOG}, plan with 3nh {tuple(plan.table3nh.XY.shape)},"
           f" nh {tuple(plan.table_nh.XY.shape)} (c'={cfg.c_bgmw}, "
           f"h'={cfg.h_bgmw}), points; fixed points + plan "
           f"{time.perf_counter() - t0:.3f} s")
-    paths = {"algorithms_plan": read_counts("algorithms_plan", [
-        "mont_mul", "point_dadd_affine", "point_dadd", "point_double"])}
+    paths = {f"{curve.name}_algorithms_plan": read_counts(
+        f"{label} plan", *path_kernels(
+            case, ["point_dadd_affine", "point_dadd", "point_double"]))}
+    stock_seeds = seeds[:max(1, len(seeds) - 1)]
     queries = [
         ("ches_host_recode", "prefix", lambda s: msm_ches_host_recode(
-            plan, host[s], bucket_impl="prefix"), ALGO_SEEDS),
+            plan, host[s], bucket_impl="prefix"), seeds),
         ("bgmw_prefix", "prefix", lambda s: msm_bgmw_device(
-            plan, scalars[s], bucket_impl="prefix"), ALGO_SEEDS),
+            plan, scalars[s], bucket_impl="prefix"), seeds),
         ("bgmw_segmented", "segmented", lambda s: msm_bgmw_device(
-            plan, scalars[s], bucket_impl="segmented"), ALGO_SEEDS),
+            plan, scalars[s], bucket_impl="segmented"), seeds),
         ("stock_prefix", "prefix", lambda s: msm_stock_pippenger(
-            plan, scalars[s], bucket_impl="prefix"), ALGO_SEEDS[:2]),
+            plan, scalars[s], bucket_impl="prefix"), stock_seeds),
         ("stock_segmented", "segmented", lambda s: msm_stock_pippenger(
-            plan, scalars[s], bucket_impl="segmented"), ALGO_SEEDS[:2]),
+            plan, scalars[s], bucket_impl="segmented"), stock_seeds),
     ]
-    for name, impl, query, seeds in queries:
+    for name, impl, query, qseeds in queries:
         reset_counts()
         check(WARM_SEED, query(WARM_SEED))
         times = []
-        for s in seeds:
+        for s in qseeds:
             torch.cuda.synchronize()
             t = time.perf_counter()
             jac = query(s)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             check(s, jac)
-        print(f"algorithms: {name}: {len(seeds)} queries equal to the oracle;"
+        print(f"{label}: {name}: {len(qseeds)} queries equal to the oracle;"
               f" query mean {1e3 * sum(times) / len(times):.3f} ms, min "
               f"{1e3 * min(times):.3f} ms")
-        other = [k for s, ks in STRATEGY_KERNELS.items() if s != impl
-                 for k in ks]
-        paths[name] = read_counts(name, QUERY_KERNELS + STRATEGY_KERNELS[impl],
-                                  unused=other)
+        paths[f"{curve.name}_{name}"] = read_counts(
+            f"{label} {name}", *path_kernels(
+                case, QUERY_KERNELS + STRATEGY_KERNELS[impl], impl))
     return paths
 
 
-SOURCES = {
-    "mont_mul": ("msm_blst_tpu_torch/csrc/mont_mul.cu",
-                 "msm_blst_tpu/fields/pallas_mont.py:281"),
-    "point_dadd_affine": ("msm_blst_tpu_torch/csrc/point_ops.cu",
-                          "msm_blst_tpu/curves/pallas_point.py:49"),
-    "point_dadd": ("msm_blst_tpu_torch/csrc/point_ops.cu",
-                   "msm_blst_tpu/curves/pallas_point.py:49"),
-    "point_double": ("msm_blst_tpu_torch/csrc/point_ops.cu",
-                     "msm_blst_tpu/curves/pallas_point.py:49"),
-    "affine_prefix_level": ("msm_blst_tpu_torch/csrc/scan.cu",
-                            "msm_blst_tpu/msm/pallas_scan.py:463"),
-    "xyzz_scan_level": ("msm_blst_tpu_torch/csrc/scan.cu",
-                        "msm_blst_tpu/msm/pallas_scan.py:367"),
-    "seg_level_affine": ("msm_blst_tpu_torch/csrc/seg.cu",
-                         "msm_blst_tpu/msm/pallas_scan.py:93"),
-    "seg_level_xyzz": ("msm_blst_tpu_torch/csrc/seg.cu",
-                       "msm_blst_tpu/msm/pallas_scan.py:93"),
+# The TPU kernel each op replaces (the point formulas share one builder,
+# the segmented levels another)
+_PALLAS = {
+    "mont_mul": "msm_blst_tpu/fields/pallas_mont.py:281",
+    "point": "msm_blst_tpu/curves/pallas_point.py:49",
+    "affine_prefix_level": "msm_blst_tpu/msm/pallas_scan.py:463",
+    "xyzz_scan_level": "msm_blst_tpu/msm/pallas_scan.py:367",
+    "seg": "msm_blst_tpu/msm/pallas_scan.py:93",
 }
+
+
+def replaces(op: str) -> str:
+    return _PALLAS.get(op) or _PALLAS[op.split("_")[0]]
 
 
 def main():
@@ -517,15 +566,21 @@ def main():
     torch.cuda.set_device(dev)
     phase_build()
     results = phase_kernels(dev)
-    paths = {"ches_device": phase_main_path(dev), **phase_algorithms(dev)}
+    g1, g2 = CurveCase("G1"), CurveCase("G2")
+    paths = {"G1_ches_device": phase_main_path(dev, g1),
+             **phase_algorithms(dev, g1, ALGO_SEEDS),
+             "G2_ches_device": phase_main_path(dev, g2),
+             **phase_algorithms(dev, g2, G2_ALGO_SEEDS)}
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(p[name] for p in paths.values()),
-         "launches_by_path": {k: p[name] for k, p in paths.items()},
-         **results[name]}
-        for name, (src, rep) in SOURCES.items()
+        {"name": k.name, "route": "cuda",
+         "source": f"msm_blst_tpu_torch/csrc/{k.source}",
+         "replaces": replaces(k.op),
+         "launches": sum(p[k.name] for p in paths.values()),
+         "launches_by_path": {name: p[k.name] for name, p in paths.items()},
+         **results[k.name]}
+        for k in counters().values()
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
 JAX holds an Fp batch as `uint32[24, *batch]` 16-bit limbs; the port as
 `int32[12, *batch]` 32-bit words with the same bits (word k = limb 2k |
-limb 2k+1 << 16). Both use R = 2^384, so a Montgomery residue converts
-without arithmetic. Everything here takes and returns numpy arrays on the
-JAX side, so it never imports jax.
+limb 2k+1 << 16). An Fp2 batch is the same per component, component axis
+in front: `uint32[2, 24, *batch]` against `int32[2, 12, *batch]`. Both use
+R = 2^384, so a Montgomery residue converts without arithmetic. Everything
+here takes and returns numpy arrays on the JAX side, so it never imports
+jax.
 """
 
 from __future__ import annotations
@@ -37,6 +39,18 @@ def fp_to_jax(words: torch.Tensor) -> np.ndarray:
     return out
 
 
+def fp2_from_jax(limbs: np.ndarray, device=None) -> torch.Tensor:
+    """np.uint32[2, 2W, *batch] -> torch.int32[2, W, *batch] on `device`
+    (default: the card)."""
+    a = np.asarray(limbs)
+    return torch.stack([fp_from_jax(a[0], device), fp_from_jax(a[1], device)])
+
+
+def fp2_to_jax(words: torch.Tensor) -> np.ndarray:
+    """torch.int32[2, W, *batch] -> np.uint32[2, 2W, *batch]."""
+    return np.stack([fp_to_jax(words[0]), fp_to_jax(words[1])])
+
+
 def _rows(xy, curve, device) -> PackedRows32:
     xy = np.array(xy, dtype=np.uint32)  # a writable copy
     if xy.ndim != 2 or xy.shape[1] != 2 * curve.F.n_words:
@@ -50,10 +64,11 @@ def plan_from_jax(arrays: dict, cfg: P.MsmConfig, curve=G1,
     (default: the card).
 
     `arrays` holds the JAX plan's fields as numpy arrays, each optional:
-    "table3nh" (its PackedRows32 `XY`, uint32[3nh, 24]) with "packed_table"
-    (the pairs layout, int32[q+1, 2]) and "bucket_gaps" (int32[B-1]) for
-    CHES; "table_nh" (uint32[nh, 24]) and "bgmw_stride3" (bool) for BGMW;
-    "points" (its (X, Y) limb arrays, uint32[24, n] each) for stock. Only
+    "table3nh" (its PackedRows32 `XY`, uint32[3nh, 2W], W = 12 words per
+    coordinate on G1, 24 on G2) with "packed_table" (the pairs layout,
+    int32[q+1, 2]) and "bucket_gaps" (int32[B-1]) for CHES; "table_nh"
+    (uint32[nh, 2W]) and "bgmw_stride3" (bool) for BGMW; "points" (its (X,
+    Y) limb arrays, uint32[24, n] or uint32[2, 24, n] each) for stock. Only
     the "i" row layout is supported, as in the port's build_plan."""
     device = resolve(device)
     plan = MsmPlan(curve=curve, cfg=cfg,
@@ -69,6 +84,8 @@ def plan_from_jax(arrays: dict, cfg: P.MsmConfig, curve=G1,
     if arrays.get("table_nh") is not None:
         plan.table_nh = _rows(arrays["table_nh"], curve, device)
     if arrays.get("points") is not None:
-        plan.points = AffinePoint(*(fp_from_jax(c, device) for c in arrays["points"]))
+        from_jax = fp2_from_jax if curve.name == "G2" else fp_from_jax
+        plan.points = AffinePoint(*(from_jax(c, device)
+                                    for c in arrays["points"]))
         plan.points_rows = curve.to_rows32(plan.points)
     return plan

@@ -1,6 +1,12 @@
 // Shared device code of the port's kernels: BLS12-381 base-field arithmetic
-// on twelve little-endian 32-bit words, the xyzz point formulas, and the
-// per-lane bodies of the four kernels (mont_mul.cu, point_ops.cu, scan.cu).
+// on twelve little-endian 32-bit words, Fp2 = Fp[i]/(i^2 + 1) on two of
+// them, the xyzz point formulas, and the per-lane bodies of the kernels
+// (mont_mul.cu; point_ops, scan and seg, each for G1 and G2).
+//
+// The formulas, loads, stores and per-lane bodies are templates over the
+// coordinate field F: Fp for G1, Fp2 for G2. They call the field through
+// one overload set (fp_add, fp_sub, fp_mul, ...), so the G1 instances are
+// the same code as a G1-only header would give.
 //
 // Every value between operations is canonical (< p), exactly as in the JAX
 // package's LimbField (msm_blst_tpu/fields/limb.py), and the Montgomery radix
@@ -18,9 +24,11 @@
 
 #ifdef __CUDACC__
 #define MSM_HD __host__ __device__ __forceinline__
+#define MSM_HD_NOINLINE static __host__ __device__ __noinline__
 #define MSM_UNROLL _Pragma("unroll")
 #else
 #define MSM_HD inline
+#define MSM_HD_NOINLINE static inline
 #define MSM_UNROLL
 #endif
 
@@ -78,12 +86,31 @@ struct Fp {
   uint32_t w[NW];
 };
 
-struct Xyzz {
-  Fp x, y, zzz, zz;
+// c0 + c1*i; each component canonical, so products are unique words.
+struct Fp2 {
+  Fp c0, c1;
 };
 
-struct Aff {
-  Fp x, y;
+// Words of one element in the row and column layouts.
+template <class F>
+struct Words;
+template <>
+struct Words<Fp> {
+  static constexpr int value = NW;
+};
+template <>
+struct Words<Fp2> {
+  static constexpr int value = 2 * NW;
+};
+
+template <class F>
+struct XyzzT {
+  F x, y, zzz, zz;
+};
+
+template <class F>
+struct AffT {
+  F x, y;
 };
 
 // ---- field -----------------------------------------------------------------
@@ -205,13 +232,69 @@ MSM_HD void fp_mul(Fp& r, const Fp& a, const Fp& b) {
   mont_mul<NW>(r.w, a.w, b.w);
 }
 
+// ---- Fp2: the same overload set over (c0, c1) --------------------------------
+
+MSM_HD bool fp_is_zero(const Fp2& a) {
+  return fp_is_zero(a.c0) && fp_is_zero(a.c1);
+}
+
+MSM_HD void fp_zero(Fp2& r) {
+  fp_zero(r.c0);
+  fp_zero(r.c1);
+}
+
+MSM_HD void fp_set_one_mont(Fp2& r) {
+  fp_set_one_mont(r.c0);
+  fp_zero(r.c1);
+}
+
+MSM_HD void fp_add(Fp2& r, const Fp2& a, const Fp2& b) {
+  fp_add(r.c0, a.c0, b.c0);
+  fp_add(r.c1, a.c1, b.c1);
+}
+
+MSM_HD void fp_sub(Fp2& r, const Fp2& a, const Fp2& b) {
+  fp_sub(r.c0, a.c0, b.c0);
+  fp_sub(r.c1, a.c1, b.c1);
+}
+
+MSM_HD void fp_neg(Fp2& r, const Fp2& a) {
+  fp_neg(r.c0, a.c0);
+  fp_neg(r.c1, a.c1);
+}
+
+MSM_HD void fp_mul3(Fp2& r, const Fp2& a) {
+  Fp2 t;
+  fp_add(t, a, a);
+  fp_add(r, t, a);
+}
+
+// Karatsuba, as msm_blst_tpu/fields/fp2.py mul_many: three Montgomery
+// products, (a0 b0 - a1 b1) + ((a0 + a1)(b0 + b1) - a0 b0 - a1 b1) i. r may
+// alias a or b. Not inlined: a G2 formula calls it a dozen or more times,
+// and one body per kernel keeps the kernels' code and build time small
+// (static: each source that includes this header has its own copy).
+MSM_HD_NOINLINE void fp_mul(Fp2& r, const Fp2& a, const Fp2& b) {
+  Fp t0, t1, t2, sa, sb;
+  fp_mul(t0, a.c0, b.c0);
+  fp_mul(t1, a.c1, b.c1);
+  fp_add(sa, a.c0, a.c1);
+  fp_add(sb, b.c0, b.c1);
+  fp_mul(t2, sa, sb);
+  fp_sub(r.c0, t0, t1);
+  fp_sub(t2, t2, t0);
+  fp_sub(r.c1, t2, t1);
+}
+
 // ---- xyzz point formulas (a = 0; infinity is ZZ == ZZZ == 0) ---------------
 
-MSM_HD bool xyzz_is_inf(const Xyzz& p) {
+template <class F>
+MSM_HD bool xyzz_is_inf(const XyzzT<F>& p) {
   return fp_is_zero(p.zz) && fp_is_zero(p.zzz);
 }
 
-MSM_HD void xyzz_set_inf(Xyzz& p) {
+template <class F>
+MSM_HD void xyzz_set_inf(XyzzT<F>& p) {
   fp_zero(p.x);
   fp_zero(p.y);
   fp_zero(p.zzz);
@@ -219,7 +302,8 @@ MSM_HD void xyzz_set_inf(Xyzz& p) {
 }
 
 // curves/ops.py xyzz_from_affine(p, negate=sub)
-MSM_HD void xyzz_from_affine(Xyzz& o, const Aff& p, bool sub) {
+template <class F>
+MSM_HD void xyzz_from_affine(XyzzT<F>& o, const AffT<F>& p, bool sub) {
   bool inf = fp_is_zero(p.x) && fp_is_zero(p.y);
   o.x = p.x;
   if (sub) {
@@ -237,8 +321,9 @@ MSM_HD void xyzz_from_affine(Xyzz& o, const Aff& p, bool sub) {
 
 // dbl-2008-s-1 (curves/ops.py xyzz_double). No infinity case: ZZ3 = V*ZZ
 // and ZZZ3 = W*ZZZ stay zero for an infinite input.
-MSM_HD void xyzz_double(Xyzz& o, const Xyzz& p) {
-  Fp U, V, A, M, W, S, MM, X3, t, T1, T2, ZZZ3, ZZ3;
+template <class F>
+MSM_HD void xyzz_double(XyzzT<F>& o, const XyzzT<F>& p) {
+  F U, V, A, M, W, S, MM, X3, t, T1, T2, ZZZ3, ZZ3;
   fp_add(U, p.y, p.y);
   fp_mul(V, U, U);
   fp_mul(A, p.x, p.x);
@@ -262,9 +347,10 @@ MSM_HD void xyzz_double(Xyzz& o, const Xyzz& p) {
 // add-2008-s with the full case analysis (curves/ops.py xyzz_dadd_body):
 // P == Q doubles, P == -Q gives infinity, an infinite operand yields the
 // other one. The batch-level cond of the JAX body is a per-thread branch.
-MSM_HD void xyzz_dadd(Xyzz& o, const Xyzz& p1, const Xyzz& p2) {
-  Fp U1, S1, U2, S2, ZZp, ZZZp, Pv, Rv, PP, RR, PPP, Q, X3, t, T1, T2;
-  Xyzz res;
+template <class F>
+MSM_HD void xyzz_dadd(XyzzT<F>& o, const XyzzT<F>& p1, const XyzzT<F>& p2) {
+  F U1, S1, U2, S2, ZZp, ZZZp, Pv, Rv, PP, RR, PPP, Q, X3, t, T1, T2;
+  XyzzT<F> res;
   fp_mul(U1, p1.x, p2.zz);
   fp_mul(S1, p1.y, p2.zzz);
   fp_mul(U2, p2.x, p1.zz);
@@ -299,9 +385,11 @@ MSM_HD void xyzz_dadd(Xyzz& o, const Xyzz& p1, const Xyzz& p2) {
 }
 
 // Signed madd-2008-s (curves/ops.py xyzz_dadd_affine_body): o = p1 +- p2.
-MSM_HD void xyzz_dadd_affine(Xyzz& o, const Xyzz& p1, const Aff& p2, bool sub) {
-  Fp y2, P0, R0, Pv, Rv, PP, RR, PPP, Q, X3, t, T1, T2;
-  Xyzz res;
+template <class F>
+MSM_HD void xyzz_dadd_affine(XyzzT<F>& o, const XyzzT<F>& p1, const AffT<F>& p2,
+                             bool sub) {
+  F y2, P0, R0, Pv, Rv, PP, RR, PPP, Q, X3, t, T1, T2;
+  XyzzT<F> res;
   if (sub) {
     fp_neg(y2, p2.y);
   } else {
@@ -330,7 +418,7 @@ MSM_HD void xyzz_dadd_affine(Xyzz& o, const Xyzz& p1, const Aff& p2, bool sub) {
   bool p_zero = fp_is_zero(Pv);
   bool r_zero = fp_is_zero(Rv);
   if (p_zero && r_zero && !p1_inf && !p2_inf) {
-    Fp U, V, A, M, W, S, MM, T3, T4;
+    F U, V, A, M, W, S, MM, T3, T4;
     fp_add(U, y2, y2);
     fp_mul(V, U, U);
     fp_mul(A, p2.x, p2.x);
@@ -355,8 +443,9 @@ MSM_HD void xyzz_dadd_affine(Xyzz& o, const Xyzz& p1, const Aff& p2, bool sub) {
 
 // ---- loads and stores --------------------------------------------------------
 // Column layout: an Fp batch is [NW, n] words, element i's word k at k*n + i,
-// so neighbouring threads read neighbouring words. Row layout: element e's
-// words are contiguous at e*stride.
+// so neighbouring threads read neighbouring words; an Fp2 batch is
+// [2, NW, n], component c's word k at (c*NW + k)*n + i. Row layout: element
+// e's words are contiguous at e*stride, an Fp2 element c0's words then c1's.
 
 MSM_HD void load_col(Fp& r, const uint32_t* base, int64_t n, int64_t i) {
   MSM_UNROLL
@@ -378,7 +467,27 @@ MSM_HD void store_row(uint32_t* row, const Fp& a) {
   for (int k = 0; k < NW; ++k) row[k] = a.w[k];
 }
 
-// The four xyzz coordinates of a column-layout batch (each [NW, n]).
+MSM_HD void load_col(Fp2& r, const uint32_t* base, int64_t n, int64_t i) {
+  load_col(r.c0, base, n, i);
+  load_col(r.c1, base + NW * n, n, i);
+}
+
+MSM_HD void store_col(uint32_t* base, const Fp2& a, int64_t n, int64_t i) {
+  store_col(base, a.c0, n, i);
+  store_col(base + NW * n, a.c1, n, i);
+}
+
+MSM_HD void load_row(Fp2& r, const uint32_t* row) {
+  load_row(r.c0, row);
+  load_row(r.c1, row + NW);
+}
+
+MSM_HD void store_row(uint32_t* row, const Fp2& a) {
+  store_row(row, a.c0);
+  store_row(row + NW, a.c1);
+}
+
+// The four xyzz coordinates of a column-layout batch (each [Words<F>, n]).
 struct XyzzCols {
   const uint32_t *x, *y, *zzz, *zz;
 };
@@ -387,14 +496,17 @@ struct XyzzColsOut {
   uint32_t *x, *y, *zzz, *zz;
 };
 
-MSM_HD void load_xyzz(Xyzz& p, const XyzzCols& c, int64_t n, int64_t i) {
+template <class F>
+MSM_HD void load_xyzz(XyzzT<F>& p, const XyzzCols& c, int64_t n, int64_t i) {
   load_col(p.x, c.x, n, i);
   load_col(p.y, c.y, n, i);
   load_col(p.zzz, c.zzz, n, i);
   load_col(p.zz, c.zz, n, i);
 }
 
-MSM_HD void store_xyzz(const XyzzColsOut& c, const Xyzz& p, int64_t n, int64_t i) {
+template <class F>
+MSM_HD void store_xyzz(const XyzzColsOut& c, const XyzzT<F>& p, int64_t n,
+                       int64_t i) {
   store_col(c.x, p.x, n, i);
   store_col(c.y, p.y, n, i);
   store_col(c.zzz, p.zzz, n, i);
@@ -419,11 +531,12 @@ MSM_HD void mont_mul_elem(const uint32_t* a, const uint32_t* b, uint32_t* out,
 }
 
 // K2, one lane of each op.
+template <class F>
 MSM_HD void dadd_affine_elem(XyzzCols p1, const uint32_t* x2, const uint32_t* y2,
                              const int32_t* sign, XyzzColsOut o, int64_t n,
                              int64_t i) {
-  Xyzz a, r;
-  Aff b;
+  XyzzT<F> a, r;
+  AffT<F> b;
   load_xyzz(a, p1, n, i);
   load_col(b.x, x2, n, i);
   load_col(b.y, y2, n, i);
@@ -431,62 +544,67 @@ MSM_HD void dadd_affine_elem(XyzzCols p1, const uint32_t* x2, const uint32_t* y2
   store_xyzz(o, r, n, i);
 }
 
+template <class F>
 MSM_HD void dadd_elem(XyzzCols p1, XyzzCols p2, XyzzColsOut o, int64_t n,
                       int64_t i) {
-  Xyzz a, b, r;
+  XyzzT<F> a, b, r;
   load_xyzz(a, p1, n, i);
   load_xyzz(b, p2, n, i);
   xyzz_dadd(r, a, b);
   store_xyzz(o, r, n, i);
 }
 
+template <class F>
 MSM_HD void double_elem(XyzzCols p1, XyzzColsOut o, int64_t n, int64_t i) {
-  Xyzz a, r;
+  XyzzT<F> a, r;
   load_xyzz(a, p1, n, i);
   xyzz_double(r, a);
   store_xyzz(o, r, n, i);
 }
 
 // K3, lane k: inclusive prefix of the signed affine stream down c columns.
-// rows_x/rows_y: (c, n_ch, NW) words; signs: (c, n_ch); local: (c, n_ch,
-// 4*NW) rows X||Y||ZZZ||ZZ; tails: four [NW, n_ch] batches.
+// With W = Words<F>: rows_x/rows_y: (c, n_ch, W) words; signs: (c, n_ch);
+// local: (c, n_ch, 4*W) rows X||Y||ZZZ||ZZ; tails: four [W, n_ch] batches.
+template <class F>
 MSM_HD void affine_prefix_lane(const uint32_t* rows_x, const uint32_t* rows_y,
                                const int32_t* signs, uint32_t* local,
                                XyzzColsOut tails, int c, int64_t n_ch,
                                int64_t k) {
-  Xyzz run;
+  constexpr int W = Words<F>::value;
+  XyzzT<F> run;
   for (int j = 0; j < c; ++j) {
     int64_t e = (int64_t)j * n_ch + k;
-    Aff pt;
-    load_row(pt.x, rows_x + e * NW);
-    load_row(pt.y, rows_y + e * NW);
+    AffT<F> pt;
+    load_row(pt.x, rows_x + e * W);
+    load_row(pt.y, rows_y + e * W);
     bool sub = signs[e] != 0;
     if (j == 0) {
       xyzz_from_affine(run, pt, sub);
     } else {
       xyzz_dadd_affine(run, run, pt, sub);
     }
-    uint32_t* row = local + e * (4 * NW);
+    uint32_t* row = local + e * (4 * W);
     store_row(row, run.x);
-    store_row(row + NW, run.y);
-    store_row(row + 2 * NW, run.zzz);
-    store_row(row + 3 * NW, run.zz);
+    store_row(row + W, run.y);
+    store_row(row + 2 * W, run.zzz);
+    store_row(row + 3 * W, run.zz);
   }
   store_xyzz(tails, run, n_ch, k);
 }
 
 // K4, lane k: inclusive xyzz prefix down c columns. Coordinates in column
-// layout (c, NW, n_ch); column j of lane k is element k of batch j.
+// layout (c, W, n_ch); column j of lane k is element k of batch j.
+template <class F>
 MSM_HD void xyzz_scan_lane(XyzzCols in, XyzzColsOut out, XyzzColsOut tails,
                            int c, int64_t n_ch, int64_t k) {
-  Xyzz run;
-  const int64_t col = (int64_t)NW * n_ch;
+  XyzzT<F> run;
+  const int64_t col = (int64_t)Words<F>::value * n_ch;
   for (int j = 0; j < c; ++j) {
     XyzzCols cj = {in.x + j * col, in.y + j * col, in.zzz + j * col,
                    in.zz + j * col};
     XyzzColsOut oj = {out.x + j * col, out.y + j * col, out.zzz + j * col,
                       out.zz + j * col};
-    Xyzz pt;
+    XyzzT<F> pt;
     load_xyzz(pt, cj, n_ch, k);
     if (j == 0) {
       run = pt;
@@ -507,58 +625,60 @@ MSM_HD void xyzz_scan_lane(XyzzCols in, XyzzColsOut out, XyzzColsOut tails,
 // soon as it closes (infinity if it never does), so only the run stays in
 // registers. The column sources below lift and add one stream element.
 
-// Affine stream in K3's row layout: rows (c, n_ch, NW) words, signs (c, n_ch).
+// Affine stream in K3's row layout: rows (c, n_ch, W) words, signs (c, n_ch).
+template <class F>
 struct SegAffineSrc {
   const uint32_t *rows_x, *rows_y;
   const int32_t* signs;
   int64_t n_ch;
 
-  MSM_HD void load(Aff& p, bool& sub, int j, int64_t k) const {
+  MSM_HD void load(AffT<F>& p, bool& sub, int j, int64_t k) const {
     int64_t e = (int64_t)j * n_ch + k;
-    load_row(p.x, rows_x + e * NW);
-    load_row(p.y, rows_y + e * NW);
+    load_row(p.x, rows_x + e * Words<F>::value);
+    load_row(p.y, rows_y + e * Words<F>::value);
     sub = signs[e] != 0;
   }
-  MSM_HD void lift(Xyzz& run, int j, int64_t k) const {
-    Aff p;
+  MSM_HD void lift(XyzzT<F>& run, int j, int64_t k) const {
+    AffT<F> p;
     bool sub;
     load(p, sub, j, k);
     xyzz_from_affine(run, p, sub);
   }
-  MSM_HD void add(Xyzz& run, int j, int64_t k) const {
-    Aff p;
+  MSM_HD void add(XyzzT<F>& run, int j, int64_t k) const {
+    AffT<F> p;
     bool sub;
     load(p, sub, j, k);
     xyzz_dadd_affine(run, run, p, sub);
   }
 };
 
-// Xyzz stream in K4's column layout: coordinates (c, NW, n_ch).
+// Xyzz stream in K4's column layout: coordinates (c, W, n_ch).
+template <class F>
 struct SegXyzzSrc {
   XyzzCols in;
   int64_t n_ch;
 
-  MSM_HD void lift(Xyzz& run, int j, int64_t k) const {
-    const int64_t col = (int64_t)j * NW * n_ch;
+  MSM_HD void lift(XyzzT<F>& run, int j, int64_t k) const {
+    const int64_t col = (int64_t)j * Words<F>::value * n_ch;
     XyzzCols cj = {in.x + col, in.y + col, in.zzz + col, in.zz + col};
     load_xyzz(run, cj, n_ch, k);
   }
-  MSM_HD void add(Xyzz& run, int j, int64_t k) const {
-    Xyzz p;
+  MSM_HD void add(XyzzT<F>& run, int j, int64_t k) const {
+    XyzzT<F> p;
     lift(p, j, k);
     xyzz_dadd(run, run, p);
   }
 };
 
-// keys: (c, n_ch); buckets: four [NW, n_buckets] batches, updated in place;
-// head/tail: four [NW, n_ch] batches; head_key/tail_key: (n_ch,).
-template <class Src>
+// keys: (c, n_ch); buckets: four [W, n_buckets] batches, updated in place;
+// head/tail: four [W, n_ch] batches; head_key/tail_key: (n_ch,).
+template <class F, class Src>
 MSM_HD void seg_level_lane(const Src& src, const int32_t* keys,
                            XyzzColsOut buckets, int64_t n_buckets,
                            XyzzColsOut head, XyzzColsOut tail,
                            int32_t* head_key, int32_t* tail_key, int c,
                            int64_t n_ch, int64_t k) {
-  Xyzz run;
+  XyzzT<F> run;
   src.lift(run, 0, k);
   int32_t run_key = keys[k];
   int32_t hk = run_key;
@@ -580,7 +700,7 @@ MSM_HD void seg_level_lane(const Src& src, const int32_t* keys,
     run_key = ky;
   }
   if (from0) {  // one run down the whole lane: the head stays infinity
-    Xyzz inf;
+    XyzzT<F> inf;
     xyzz_set_inf(inf);
     store_xyzz(head, inf, n_ch, k);
     hk = run_key;
@@ -590,24 +710,26 @@ MSM_HD void seg_level_lane(const Src& src, const int32_t* keys,
   store_xyzz(tail, run, n_ch, k);
 }
 
+template <class F>
 MSM_HD void seg_level_affine_lane(const uint32_t* rows_x, const uint32_t* rows_y,
                                   const int32_t* signs, const int32_t* keys,
                                   XyzzColsOut buckets, int64_t n_buckets,
                                   XyzzColsOut head, XyzzColsOut tail,
                                   int32_t* head_key, int32_t* tail_key, int c,
                                   int64_t n_ch, int64_t k) {
-  SegAffineSrc src = {rows_x, rows_y, signs, n_ch};
-  seg_level_lane(src, keys, buckets, n_buckets, head, tail, head_key, tail_key,
+  SegAffineSrc<F> src = {rows_x, rows_y, signs, n_ch};
+  seg_level_lane<F>(src, keys, buckets, n_buckets, head, tail, head_key, tail_key,
                  c, n_ch, k);
 }
 
+template <class F>
 MSM_HD void seg_level_xyzz_lane(XyzzCols in, const int32_t* keys,
                                 XyzzColsOut buckets, int64_t n_buckets,
                                 XyzzColsOut head, XyzzColsOut tail,
                                 int32_t* head_key, int32_t* tail_key, int c,
                                 int64_t n_ch, int64_t k) {
-  SegXyzzSrc src = {in, n_ch};
-  seg_level_lane(src, keys, buckets, n_buckets, head, tail, head_key, tail_key,
+  SegXyzzSrc<F> src = {in, n_ch};
+  seg_level_lane<F>(src, keys, buckets, n_buckets, head, tail, head_key, tail_key,
                  c, n_ch, k);
 }
 

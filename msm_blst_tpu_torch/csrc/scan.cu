@@ -1,64 +1,15 @@
-// K3 and K4: the level kernels of the prefix-scan bucket pipeline.
-//
-// K3 replaces msm_blst_tpu/msm/pallas_scan.py _affine_prefix_kernel
-// (entered through affine_prefix_level): an inclusive prefix of a signed
-// affine stream down c columns per lane, run += +-P with the mixed add,
-// emitting every local prefix as a row and each lane's tail.
-// K4 replaces pallas_scan.py _scan_kernel (entered through
-// prefix_scan_xyzz): the same over an xyzz stream with the full add.
-//
-// On the TPU the grid walks the columns in order and carries the run in
-// VMEM scratch. Blocks on Hopper run in no order, so each thread owns one
-// lane and loops over the c columns with its run in registers: nothing
-// carries between blocks.
-//
-// Bound on the H100: integer multiplies (12 or 16 Montgomery products per
-// element) and the serial dependence down a lane. The stream shape is kept
-// from the JAX package so intermediates match it; at the main path's shape
-// (c = 112, n_ch = 8192) that gives 8192 threads, 64 blocks of 128 on 132
-// SMs, which leaves most of the card idle. Retuning the shape is later work.
+// K3 and K4 for G1 (coordinates in Fp): the C entry points of scan.cuh.
 
-#include <cuda_runtime.h>
+#include "scan.cuh"
 
-#include "fp.cuh"
-
-namespace {
-
-using msm::XyzzCols;
-using msm::XyzzColsOut;
-
-__global__ void affine_prefix_kernel(const uint32_t* rows_x,
-                                     const uint32_t* rows_y,
-                                     const int32_t* signs, uint32_t* local,
-                                     XyzzColsOut tails, int c, int64_t n_ch) {
-  int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < n_ch) msm::affine_prefix_lane(rows_x, rows_y, signs, local, tails, c, n_ch, k);
-}
-
-__global__ void xyzz_scan_kernel(XyzzCols in, XyzzColsOut out, XyzzColsOut tails,
-                                 int c, int64_t n_ch) {
-  int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < n_ch) msm::xyzz_scan_lane(in, out, tails, c, n_ch, k);
-}
-
-constexpr int THREADS = 128;
-
-unsigned blocks_for(int64_t n) { return (unsigned)((n + THREADS - 1) / THREADS); }
-
-}  // namespace
+using msm::Fp;
 
 extern "C" int msm_affine_prefix_level(const void* rows_x, const void* rows_y,
                                        const void* signs, void* local, void* tx,
                                        void* ty, void* tzzz, void* tzz, int c,
                                        int64_t n_ch, void* stream) {
-  if (c > 0 && n_ch > 0) {
-    XyzzColsOut tails = {(uint32_t*)tx, (uint32_t*)ty, (uint32_t*)tzzz,
-                         (uint32_t*)tzz};
-    affine_prefix_kernel<<<blocks_for(n_ch), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)rows_x, (const uint32_t*)rows_y, (const int32_t*)signs,
-        (uint32_t*)local, tails, c, n_ch);
-  }
-  return (int)cudaGetLastError();
+  return msm::scan::affine_prefix_level<Fp>(rows_x, rows_y, signs, local, tx,
+                                            ty, tzzz, tzz, c, n_ch, stream);
 }
 
 extern "C" int msm_xyzz_scan_level(const void* x, const void* y, const void* zzz,
@@ -66,15 +17,6 @@ extern "C" int msm_xyzz_scan_level(const void* x, const void* y, const void* zzz
                                    void* ozzz, void* ozz, void* tx, void* ty,
                                    void* tzzz, void* tzz, int c, int64_t n_ch,
                                    void* stream) {
-  if (c > 0 && n_ch > 0) {
-    XyzzCols in = {(const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)zzz,
-                   (const uint32_t*)zz};
-    XyzzColsOut out = {(uint32_t*)ox, (uint32_t*)oy, (uint32_t*)ozzz,
-                       (uint32_t*)ozz};
-    XyzzColsOut tails = {(uint32_t*)tx, (uint32_t*)ty, (uint32_t*)tzzz,
-                         (uint32_t*)tzz};
-    xyzz_scan_kernel<<<blocks_for(n_ch), THREADS, 0, (cudaStream_t)stream>>>(
-        in, out, tails, c, n_ch);
-  }
-  return (int)cudaGetLastError();
+  return msm::scan::xyzz_scan_level<Fp>(x, y, zzz, zz, ox, oy, ozzz, ozz, tx,
+                                        ty, tzzz, tzz, c, n_ch, stream);
 }

@@ -1,10 +1,13 @@
 """Branch-free batched point arithmetic in xyzz and Jacobian coordinates.
 
-Port of msm_blst_tpu/curves/ops.py for G1 (a = 0 short Weierstrass). Every
-case is computed over the whole batch and lane-selected with `where` (the
-doubling branch of the adds only when some lane doubles, as the JAX bodies'
-cond_dbl); the formulas take the same steps in the same order as the JAX
-bodies, so with canonical field values they give the same words.
+Port of msm_blst_tpu/curves/ops.py (a = 0 short Weierstrass), over a field
+object F: Fp (G1, coordinates int32[12, *batch]) or Fp2 (G2, int32[2, 12,
+*batch]); the batch follows the field's leading axes `F.lead`, as JAX's
+`_bshape` / `_restore`. Every case is computed over the whole batch and
+lane-selected with `where` (the doubling branch of the adds only when some
+lane doubles, as the JAX bodies' cond_dbl); the formulas take the same
+steps in the same order as the JAX bodies, so with canonical field values
+they give the same words.
 
 Infinity conventions (as refimpl and the JAX package):
   affine: (0, 0) | Jacobian: Z == 0 | xyzz: ZZ == 0 and ZZZ == 0.
@@ -43,18 +46,23 @@ class XyzzPoint(NamedTuple):
 
 class PackedRows32(NamedTuple):
     """Affine table as one row-major int32 array (N, 2W): X words || Y words
-    per row, 96 B per G1 point — the JAX PackedRows32 row, bit for bit, so
-    the port gathers words and never unpacks limbs."""
+    per row, W = F.n_words (96 B per G1 point; 192 B per G2 point, each
+    coordinate c0 words || c1 words) — the JAX PackedRows32 row, bit for
+    bit, so the port gathers words and never unpacks limbs."""
 
     XY: torch.Tensor
 
 
 class CurveOps:
-    """Batched point ops over a field-ops object F (a LimbField)."""
+    """Batched point ops over a field-ops object F (LimbField or Fp2Ops)."""
 
     def __init__(self, F, name: str):
         self.F = F
         self.name = name
+
+    def bshape(self, coord) -> tuple:
+        """The batch shape of a coordinate: its axes after F.lead."""
+        return tuple(coord.shape[len(self.F.lead):])
 
     # ---- lifts / predicates ---------------------------------------------------
     def select(self, mask, a, b):
@@ -80,7 +88,7 @@ class CurveOps:
         F = self.F
         y = p.Y if negate is None else F.cneg(p.Y, negate)
         inf = self.affine_is_inf(p)
-        shape = p.X.shape[1:]
+        shape = self.bshape(p.X)
         zz = F.select(inf, F.zeros(shape, p.X.device),
                       F.one_mont(shape, p.X.device))
         return XyzzPoint(p.X, y, zz, zz)
@@ -136,7 +144,7 @@ class CurveOps:
         if dbl_mask.any():
             out = self.select(dbl_mask, self.xyzz_double_body(p1, F), added)
         out = self.select(p_zero & ~r_zero & ~p1_inf & ~p2_inf,
-                          self.xyzz_inf(p1.X.shape[1:], p1.X.device), out)
+                          self.xyzz_inf(self.bshape(p1.X), p1.X.device), out)
         out = self.select(p2_inf, p1, out)
         return self.select(p1_inf, p2, out)
 
@@ -172,7 +180,7 @@ class CurveOps:
             out = self.select(dbl_mask, XyzzPoint(Xd, F.sub(T3, T4), W, V),
                               added)
         out = self.select(p_zero & ~r_zero & ~p1_inf & ~p2_inf,
-                          self.xyzz_inf(p1.X.shape[1:], p1.X.device), out)
+                          self.xyzz_inf(self.bshape(p1.X), p1.X.device), out)
         out = self.select(p1_inf, self.xyzz_from_affine(p2, negate=subtract),
                           out)
         return self.select(p2_inf, p1, out)
@@ -182,7 +190,8 @@ class CurveOps:
         F = self.F
         inf = self.xyzz_is_inf(p)
         jac = JacPoint(F.mul(p.X, p.ZZ), F.mul(p.Y, p.ZZZ), p.ZZ)
-        return self.select(inf, self.jac_inf(p.X.shape[1:], p.X.device), jac)
+        return self.select(inf, self.jac_inf(self.bshape(p.X), p.X.device),
+                           jac)
 
     def jac_to_affine(self, p: JacPoint) -> AffinePoint:
         """Batched: one field inversion total. Infinity maps to (0, 0)."""
@@ -205,10 +214,17 @@ class CurveOps:
         return type(p)(*(c.index_select(-1, idx) for c in p))
 
     def to_rows32(self, p: AffinePoint) -> PackedRows32:
-        """(W, N) affine batch -> (N, 2W) row table."""
-        return PackedRows32(torch.cat([p.X.T, p.Y.T], dim=1).contiguous())
+        """(*F.lead, N) affine batch -> (N, 2W) row table."""
+        W = self.F.n_words
+        return PackedRows32(torch.cat(
+            [p.X.reshape(W, -1).T, p.Y.reshape(W, -1).T], dim=1).contiguous())
 
     def from_rows(self, rows: PackedRows32) -> AffinePoint:
         W = self.F.n_words
-        return AffinePoint(rows.XY[:, :W].T.contiguous(),
-                           rows.XY[:, W:].T.contiguous())
+        return AffinePoint(*(self.from_words(x.T)
+                             for x in (rows.XY[:, :W], rows.XY[:, W:])))
+
+    def from_words(self, x: torch.Tensor) -> torch.Tensor:
+        """(W, *batch) words of one coordinate -> (*F.lead, *batch),
+        contiguous."""
+        return x.reshape(self.F.lead + tuple(x.shape[1:])).contiguous()

@@ -17,11 +17,9 @@ from __future__ import annotations
 import torch
 
 from ..constants import P
-from ..kernels import Kernel, check_cuda, ptr
+from ..kernels import MONT_MUL, check_cuda, on_cpu, ptr
 from .limb import (LIMB_BITS, LimbField, limbs_to_words, resolve_limbs,
                    words_to_limbs)
-
-MONT_MUL = Kernel("msm_mont_mul")
 
 # plain-path batch slice: bounds the (L, 2L, B) int64 outer-product scratch
 _PLAIN_CHUNK = 1 << 15
@@ -69,7 +67,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor,
              field: LimbField) -> torch.Tensor:
     """a*b*R^-1 mod p for int32[W, B] batches: the kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    if on_cpu(a, b):
         return mont_mul_plain(a, b, field)
     if field.modulus != P or a.shape[0] != 12:
         raise NotImplementedError("the CUDA multiply is built for Fp only")

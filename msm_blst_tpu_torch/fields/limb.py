@@ -134,6 +134,7 @@ class LimbField:
     def __init__(self, modulus: int, kernels: bool = True):
         self.modulus = modulus
         self.n_words = -(-modulus.bit_length() // WORD_BITS)
+        self.lead = (self.n_words,)  # axes in front of the batch
         self.n_limbs = 2 * self.n_words
         self.kernels = kernels
         self.R = 1 << (WORD_BITS * self.n_words)

@@ -10,7 +10,9 @@ import every module of the port on a machine without nvcc or a card.
 Each kernel entry point is a `Kernel`: calling it launches the kernel on
 PyTorch's current stream, raises if the launch failed, and adds one to its
 `launches` count — the count a run reads to show that it went through the
-kernel.
+kernel. The table of them is here, in one place: K1 (`MONT_MUL`) and each
+curve's K2-K5 (`CURVE_KERNELS`), with the name a run reports each under,
+its C symbol and its source.
 """
 
 from __future__ import annotations
@@ -83,28 +85,54 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stderr}{link.stdout}")
-        so.with_suffix(".log").write_text("".join(out for _, out, _ in logs))
+        so.with_suffix(".log").write_text(
+            "".join(f"== {cu.name}\n{out}" for cu, out, _ in logs))
         os.replace(tmp / so.name, so)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return so
 
 
+def _entry_name(symbol: str) -> str:
+    """The unqualified name of a mangled kernel symbol: the last
+    length-prefixed part of its (nested) name, before any template
+    arguments."""
+    i, name = (3 if symbol.startswith("_ZN") else 2), symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        name, i = symbol[j: j + int(symbol[i:j])], j + int(symbol[i:j])
+    return name
+
+
 def ptxas_summary() -> dict:
-    """{kernel: "N registers, S B spill stores, L B spill loads"} from the
-    build log of the current library (built first if needed)."""
+    """{"source entry": "N registers, F B stack frame, S B spill stores, L B
+    spill loads"} for every kernel (`__global__` entry function) from the
+    build log of the current library (built first if needed); the
+    properties ptxas reports for a called device function (the Fp2
+    multiply) are not a kernel's."""
     log = build().with_suffix(".log").read_text()
-    out, name = {}, None
+    out, entry, current, source = {}, None, None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(?:\S*?\d)?([a-z][a-z_]*_kernel)",
-                      line)
+        if line.startswith("== "):
+            source = line[3:]
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name:
-            out[name] = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+            entry = current = m.group(1)
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            current = m.group(1)
+        if entry is None or current != entry:
+            continue
+        name = f"{source} {_entry_name(entry)}"
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name] = (f"{m.group(1)} B stack frame, {m.group(2)} B spill "
+                         f"stores, {m.group(3)} B spill loads")
         m = re.search(r"Used (\d+) registers", line)
-        if m and name:
+        if m:
             out[name] = f"{m.group(1)} registers, " + out.get(name, "")
     return out
 
@@ -113,37 +141,14 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 
-_SIGNATURES = {
-    "msm_mont_mul": [_P, _P, _P, _I64, _P],
-    "msm_xyzz_dadd_affine": [_P] * 11 + [_I64, _P],
-    "msm_xyzz_dadd": [_P] * 12 + [_I64, _P],
-    "msm_xyzz_double": [_P] * 8 + [_I64, _P],
-    "msm_affine_prefix_level": [_P] * 8 + [_I32, _I64, _P],
-    "msm_xyzz_scan_level": [_P] * 12 + [_I32, _I64, _P],
-    "msm_seg_level_affine": [_P] * 8 + [_I64] + [_P] * 10 + [_I32, _I64, _P],
-    "msm_seg_level_xyzz": [_P] * 9 + [_I64] + [_P] * 10 + [_I32, _I64, _P],
-}
-
-
-def load():
-    """The loaded kernel library, built first if needed."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 class Kernel:
-    """One kernel's C entry point with its launch count."""
+    """One kernel's C entry point: `name` as runs report it, `op` (the name
+    without its curve's prefix), its C `symbol` and `argtypes` (the stream
+    follows them), its `source` in csrc/, and its launch count."""
 
-    def __init__(self, symbol: str):
-        assert symbol in _SIGNATURES, symbol
-        self.symbol = symbol
+    def __init__(self, name: str, op: str, symbol: str, source: str, argtypes):
+        self.name, self.op, self.symbol = name, op, symbol
+        self.source, self.argtypes = source, list(argtypes)
         self.launches = 0
 
     def __call__(self, *args):
@@ -153,6 +158,57 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} at launch")
         self.launches += 1
+
+
+MONT_MUL = Kernel("mont_mul", "mont_mul", "msm_mont_mul", "mont_mul.cu",
+                  [_P, _P, _P, _I64])
+
+# K2-K5 of a curve, by op: (C symbol without "msm_" and the curve's prefix,
+# source stem, argument types). Every curve's instances take the same
+# arguments; only the coordinate field differs.
+_CURVE_OPS = {
+    "point_dadd_affine": ("xyzz_dadd_affine", "point_ops", [_P] * 11 + [_I64]),
+    "point_dadd": ("xyzz_dadd", "point_ops", [_P] * 12 + [_I64]),
+    "point_double": ("xyzz_double", "point_ops", [_P] * 8 + [_I64]),
+    "affine_prefix_level": ("affine_prefix_level", "scan",
+                            [_P] * 8 + [_I32, _I64]),
+    "xyzz_scan_level": ("xyzz_scan_level", "scan", [_P] * 12 + [_I32, _I64]),
+    "seg_level_affine": ("seg_level_affine", "seg",
+                         [_P] * 8 + [_I64] + [_P] * 10 + [_I32, _I64]),
+    "seg_level_xyzz": ("seg_level_xyzz", "seg",
+                       [_P] * 9 + [_I64] + [_P] * 10 + [_I32, _I64]),
+}
+# each curve's tag: G1's kernels are csrc/{point_ops,scan,seg}.cu, msm_*;
+# G2's csrc/*_g2.cu, msm_g2_*, reported as g2_*
+_CURVE_TAGS = {"G1": "", "G2": "g2"}
+CURVE_KERNELS = {
+    curve: {op: Kernel(f"{tag}_{op}" if tag else op, op,
+                       f"msm_{tag}_{sym}" if tag else f"msm_{sym}",
+                       f"{src}_{tag}.cu" if tag else f"{src}.cu", args)
+            for op, (sym, src, args) in _CURVE_OPS.items()}
+    for curve, tag in _CURVE_TAGS.items()
+}
+ALL_KERNELS = [MONT_MUL] + [k for ks in CURVE_KERNELS.values()
+                            for k in ks.values()]
+
+
+def load():
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for k in ALL_KERNELS:
+            fn = getattr(lib, k.symbol)
+            fn.argtypes = k.argtypes + [_P]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU: a wrapper then takes its
+    kernel's plain version; otherwise it launches the kernel or raises."""
+    return all(t.device.type == "cpu" for t in tensors)
 
 
 def ptr(t: torch.Tensor):

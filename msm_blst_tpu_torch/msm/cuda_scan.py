@@ -1,6 +1,12 @@
 """K3, K4 and K5: the level kernels of the two bucket pipelines
 (csrc/scan.cu, csrc/seg.cu) and their plain twins.
 
+Each kernel has a G1 and a G2 instance (csrc/scan.cu and seg.cu,
+csrc/scan_g2.cu and seg_g2.cu), chosen by the curve. Coordinates keep the
+field's leading axes F.lead — (12,) for G1, (2, 12) for G2 — in front of the
+lane axis, as JAX's pallas_scan `_lead`; rows hold W = F.n_words words per
+coordinate (12 or 24).
+
 K3 `affine_prefix_level` replaces msm_blst_tpu/msm/pallas_scan.py
 _affine_prefix_kernel (via affine_prefix_level): the level-1 inclusive
 prefix of a signed affine stream down `c` columns per lane, emitting every
@@ -34,13 +40,8 @@ import numpy as np
 import torch
 
 from ..curves.ops import AffinePoint, PackedRows32, XyzzPoint
-from ..kernels import Kernel, check_cuda, ptr
+from ..kernels import CURVE_KERNELS, check_cuda, on_cpu, ptr
 from ..utils import scans
-
-AFFINE_PREFIX = Kernel("msm_affine_prefix_level")
-XYZZ_SCAN = Kernel("msm_xyzz_scan_level")
-SEG_AFFINE = Kernel("msm_seg_level_affine")
-SEG_XYZZ = Kernel("msm_seg_level_xyzz")
 
 # K5 levels run while the stream holds at least this many elements
 MIN_LEVEL_N = 1024
@@ -55,9 +56,16 @@ def _shape_stream(N: int, c_target: int = 32, min_lanes: int = 128):
     return max(2, -(-N // n_ch)), n_ch
 
 
-def _require_g1(curve):
-    if curve.name != "G1" or curve.F.n_words != 12:
-        raise NotImplementedError("the CUDA scan kernels are built for G1")
+def _lanes_last(curve, x):
+    """(c, n_ch, W) rows -> (c, *F.lead, n_ch) coordinates."""
+    c, n_ch, _ = x.shape
+    return x.permute(0, 2, 1).reshape((c,) + curve.F.lead + (n_ch,))
+
+
+def _empty(curve, n: int, device):
+    """Four uninitialised (*F.lead, n) coordinates."""
+    return [torch.empty(curve.F.lead + (n,), dtype=torch.int32, device=device)
+            for _ in range(4)]
 
 
 # ---- K3 -----------------------------------------------------------------------
@@ -65,11 +73,11 @@ def _require_g1(curve):
 
 def affine_prefix_level_plain(curve, rows_x, rows_y, sgn_cols):
     """Plain K3: rows (c, n_ch, W) int32 x2, signs (c, n_ch) ->
-    (local rows int32 (c, n_ch, 4W), tails XyzzPoint of (W, n_ch))."""
+    (local rows int32 (c, n_ch, 4W), tails XyzzPoint of (*F.lead, n_ch))."""
     F = curve.F.plain
-    c = rows_x.shape[0]
-    X = rows_x.permute(0, 2, 1)
-    Y = rows_y.permute(0, 2, 1)
+    c, n_ch, W = rows_x.shape
+    X = _lanes_last(curve, rows_x)
+    Y = _lanes_last(curve, rows_y)
     sub = sgn_cols != 0
     run = curve.xyzz_from_affine(AffinePoint(X[0], Y[0]), negate=sub[0])
     locs = [run]
@@ -77,20 +85,21 @@ def affine_prefix_level_plain(curve, rows_x, rows_y, sgn_cols):
         run = curve.xyzz_dadd_affine_body(run, AffinePoint(X[j], Y[j]),
                                           subtract=sub[j], F=F)
         locs.append(run)
-    local = torch.cat([torch.stack([p[i] for p in locs]) for i in range(4)],
-                      dim=1)  # (c, 4W, n_ch)
+    local = torch.cat([torch.stack([p[i] for p in locs]).reshape(c, W, n_ch)
+                       for i in range(4)], dim=1)  # (c, 4W, n_ch)
     return local.permute(0, 2, 1).contiguous(), run
 
 
 def affine_prefix_level(curve, rows_x, rows_y, sgn_cols):
     """Level-1 prefix over gathered table rows (c, n_ch, W) x2 and signs
     (c, n_ch). Returns (local rows int32 (c, n_ch, 4W) — the four xyzz
-    coordinates per stream element — and tails XyzzPoint of (W, n_ch))."""
-    if rows_x.device.type == "cpu":
+    coordinates per stream element — and tails XyzzPoint of (*F.lead,
+    n_ch))."""
+    if on_cpu(rows_x):
         return affine_prefix_level_plain(curve, rows_x, rows_y, sgn_cols)
-    _require_g1(curve)
     c, n_ch, W = rows_x.shape
-    if rows_y.shape != rows_x.shape or tuple(sgn_cols.shape) != (c, n_ch):
+    if (W != curve.F.n_words or rows_y.shape != rows_x.shape
+            or tuple(sgn_cols.shape) != (c, n_ch)):
         raise ValueError("affine_prefix_level: shapes "
                          f"{tuple(rows_x.shape)} {tuple(rows_y.shape)} "
                          f"{tuple(sgn_cols.shape)}")
@@ -98,10 +107,10 @@ def affine_prefix_level(curve, rows_x, rows_y, sgn_cols):
     check_cuda("affine_prefix_level", (rows_x, rows_y, sgn))
     local = torch.empty((c, n_ch, 4 * W), dtype=torch.int32,
                         device=rows_x.device)
-    tails = [torch.empty((W, n_ch), dtype=torch.int32, device=rows_x.device)
-             for _ in range(4)]
-    AFFINE_PREFIX(ptr(rows_x), ptr(rows_y), ptr(sgn), ptr(local),
-                  *map(ptr, tails), c, n_ch)
+    tails = _empty(curve, n_ch, rows_x.device)
+    CURVE_KERNELS[curve.name]["affine_prefix_level"](
+        ptr(rows_x), ptr(rows_y), ptr(sgn), ptr(local), *map(ptr, tails), c,
+        n_ch)
     return local, XyzzPoint(*tails)
 
 
@@ -109,8 +118,8 @@ def affine_prefix_level(curve, rows_x, rows_y, sgn_cols):
 
 
 def xyzz_scan_level_plain(curve, cols: XyzzPoint):
-    """Plain K4: coordinates (c, W, n_ch) -> (inclusive scans down the
-    columns, same shape; tails XyzzPoint of (W, n_ch))."""
+    """Plain K4: coordinates (c, *F.lead, n_ch) -> (inclusive scans down
+    the columns, same shape; tails XyzzPoint of (*F.lead, n_ch))."""
     F = curve.F.plain
     c = cols.X.shape[0]
     run = XyzzPoint(*(x[0] for x in cols))
@@ -122,27 +131,27 @@ def xyzz_scan_level_plain(curve, cols: XyzzPoint):
 
 
 def xyzz_scan_level(curve, cols: XyzzPoint):
-    """Inclusive xyzz prefix down the columns of (c, W, n_ch) coordinates.
-    Returns (scans of the same shape, tails XyzzPoint of (W, n_ch))."""
-    if cols.X.device.type == "cpu":
+    """Inclusive xyzz prefix down the columns of (c, *F.lead, n_ch)
+    coordinates. Returns (scans of the same shape, tails XyzzPoint of
+    (*F.lead, n_ch))."""
+    if on_cpu(cols.X):
         return xyzz_scan_level_plain(curve, cols)
-    _require_g1(curve)
     ins = [x.contiguous() for x in cols]
     check_cuda("xyzz_scan_level", ins)
-    if any(x.shape != ins[0].shape for x in ins) or ins[0].ndim != 3:
+    c, n_ch = ins[0].shape[0], ins[0].shape[-1]
+    if any(tuple(x.shape) != (c,) + curve.F.lead + (n_ch,) for x in ins):
         raise ValueError("xyzz_scan_level: coordinates must share a "
-                         "(c, W, n_ch) shape")
-    c, W, n_ch = ins[0].shape
+                         "(c, *F.lead, n_ch) shape")
     outs = [torch.empty_like(ins[0]) for _ in range(4)]
-    tails = [torch.empty((W, n_ch), dtype=torch.int32, device=ins[0].device)
-             for _ in range(4)]
-    XYZZ_SCAN(*map(ptr, ins + outs + tails), c, n_ch)
+    tails = _empty(curve, n_ch, ins[0].device)
+    CURVE_KERNELS[curve.name]["xyzz_scan_level"](
+        *map(ptr, ins + outs + tails), c, n_ch)
     return XyzzPoint(*outs), XyzzPoint(*tails)
 
 
 def prefix_scan_xyzz(curve, pts: XyzzPoint) -> XyzzPoint:
-    """Inclusive prefix scan over a 1-D xyzz batch (W, N): one level in
-    column layout, then the chunk-tail carry combine (as utils/scans
+    """Inclusive prefix scan over a 1-D xyzz batch (*F.lead, N): one level
+    in column layout, then the chunk-tail carry combine (as utils/scans
     prefix_scan) with one wide dadd. The JAX package takes this route only
     from MIN_SCAN_N = 4096 elements, where its 128-lane floor never binds;
     here every size does, so the floor is dropped rather than padding a
@@ -151,12 +160,14 @@ def prefix_scan_xyzz(curve, pts: XyzzPoint) -> XyzzPoint:
     c, n_ch = _shape_stream(N, min_lanes=1)
     pad = n_ch * c - N
 
-    def to_cols(x):  # (W, N) -> (c, W, n_ch); column j = elements k*c + j
+    lead = curve.F.lead
+
+    def to_cols(x):  # (*lead, N) -> (c, *lead, n_ch); column j: k*c + j
         x = scans.pad_last(x, pad)
-        return x.reshape(x.shape[0], n_ch, c).permute(2, 0, 1).contiguous()
+        return x.reshape(lead + (n_ch, c)).movedim(-1, 0).contiguous()
 
     level, tails = xyzz_scan_level(curve, XyzzPoint(*map(to_cols, pts)))
-    stream = XyzzPoint(*(x.permute(1, 2, 0).reshape(x.shape[1], -1)
+    stream = XyzzPoint(*(x.movedim(0, -1).reshape(lead + (-1,))
                          for x in level))  # index k*c + j
     if n_ch > 1:
         tails_scan = scans.prefix_scan(curve.xyzz_dadd, tails)
@@ -175,10 +186,10 @@ def prefix_scan_xyzz(curve, pts: XyzzPoint) -> XyzzPoint:
 
 def bucket_array(curve, n_buckets: int, device) -> XyzzPoint:
     """An all-infinity xyzz bucket array for in-place stores: four distinct
-    (W, n_buckets) tensors (curve.xyzz_inf shares one zero tensor)."""
-    W = curve.F.n_words
-    return XyzzPoint(*(torch.zeros((W, n_buckets), dtype=torch.int32,
-                                   device=device) for _ in range(4)))
+    (*F.lead, n_buckets) tensors (curve.xyzz_inf shares one zero tensor)."""
+    return XyzzPoint(*(torch.zeros(curve.F.lead + (n_buckets,),
+                                   dtype=torch.int32, device=device)
+                       for _ in range(4)))
 
 
 def store_points(buckets: XyzzPoint, keys, pts: XyzzPoint,
@@ -189,20 +200,20 @@ def store_points(buckets: XyzzPoint, keys, pts: XyzzPoint,
     keep = (keys >= 0) & (keys < n_buckets)
     idx = keys[keep].to(torch.int64)
     for bc, pc in zip(buckets, pts):
-        bc[:, idx] = pc[:, keep]
+        bc[..., idx] = pc[..., keep]
 
 
 def seg_level_plain(curve, cols, signs, keys, buckets: XyzzPoint,
                     n_buckets: int):
     """Plain K5, the same contract: `cols` is (rows_x, rows_y) of
     (c, n_ch, W) with `signs` (c, n_ch) (affine), or an XyzzPoint of
-    (c, W, n_ch) with signs None; keys (c, n_ch). Complete runs are stored
-    into `buckets` in place. Returns (head, tail) XyzzPoints of (W, n_ch) and
-    (head_key, tail_key) of (n_ch,)."""
+    (c, *F.lead, n_ch) with signs None; keys (c, n_ch). Complete runs are
+    stored into `buckets` in place. Returns (head, tail) XyzzPoints of
+    (*F.lead, n_ch) and (head_key, tail_key) of (n_ch,)."""
     F = curve.F.plain
     c, n_ch = keys.shape
     if signs is not None:
-        X, Y = (r.permute(0, 2, 1) for r in cols)
+        X, Y = (_lanes_last(curve, r) for r in cols)
         sub = signs != 0
 
         def lift(j):
@@ -240,19 +251,17 @@ def seg_level_plain(curve, cols, signs, keys, buckets: XyzzPoint,
 def seg_level(curve, cols, signs, keys, buckets: XyzzPoint, n_buckets: int):
     """One segmented level (see seg_level_plain for the contract): K5 for
     CUDA tensors, the plain version for CPU tensors."""
-    if keys.device.type == "cpu":
+    if on_cpu(keys):
         return seg_level_plain(curve, cols, signs, keys, buckets, n_buckets)
-    _require_g1(curve)
-    W = curve.F.n_words
+    lead, W = curve.F.lead, curve.F.n_words
     c, n_ch = keys.shape
     dev = keys.device
     keys = keys.to(torch.int32).contiguous()
     bk = list(buckets)
-    if any(tuple(b.shape) != (W, n_buckets) for b in bk):
-        raise ValueError(f"seg_level: buckets must be ({W}, {n_buckets})")
-    head = [torch.empty((W, n_ch), dtype=torch.int32, device=dev)
-            for _ in range(4)]
-    tail = [torch.empty_like(head[0]) for _ in range(4)]
+    if any(tuple(b.shape) != lead + (n_buckets,) for b in bk):
+        raise ValueError(f"seg_level: buckets must be {lead + (n_buckets,)}")
+    head = _empty(curve, n_ch, dev)
+    tail = _empty(curve, n_ch, dev)
     hk = torch.empty(n_ch, dtype=torch.int32, device=dev)
     tk = torch.empty_like(hk)
     outs = [*map(ptr, bk), n_buckets, *map(ptr, head + tail), ptr(hk), ptr(tk),
@@ -264,23 +273,26 @@ def seg_level(curve, cols, signs, keys, buckets: XyzzPoint, n_buckets: int):
             raise ValueError("seg_level: affine rows must be (c, n_ch, W) "
                              "with signs and keys (c, n_ch)")
         check_cuda("seg_level_affine", [rx, ry, sg, keys] + bk)
-        SEG_AFFINE(ptr(rx), ptr(ry), ptr(sg), ptr(keys), *outs)
+        CURVE_KERNELS[curve.name]["seg_level_affine"](
+            ptr(rx), ptr(ry), ptr(sg), ptr(keys), *outs)
     else:
         ins = [x.contiguous() for x in cols]
-        if any(tuple(x.shape) != (c, W, n_ch) for x in ins):
-            raise ValueError("seg_level: xyzz coordinates must be (c, W, n_ch)")
+        if any(tuple(x.shape) != (c,) + lead + (n_ch,) for x in ins):
+            raise ValueError("seg_level: xyzz coordinates must be "
+                             "(c, *F.lead, n_ch)")
         check_cuda("seg_level_xyzz", ins + [keys] + bk)
-        SEG_XYZZ(*map(ptr, ins), ptr(keys), *outs)
+        CURVE_KERNELS[curve.name]["seg_level_xyzz"](*map(ptr, ins),
+                                                     ptr(keys), *outs)
     return XyzzPoint(*head), XyzzPoint(*tail), hk, tk
 
 
 def level_cols(curve, pts, signs, keys, n_buckets: int):
     """seg_level's inputs for one level over a key-sorted stream of N
     elements: `pts` is the signed affine stream (signs given) as an
-    AffinePoint (W, N) or its PackedRows32 rows (N, 2W), or an xyzz stream
-    XyzzPoint (W, N). Lane k takes elements k*c .. k*c + c-1; pads are
-    infinity with key n_buckets. Returns (cols, signs cols or None, keys
-    cols (c, n_ch)).
+    AffinePoint (*F.lead, N) or its PackedRows32 rows (N, 2W), or an xyzz
+    stream XyzzPoint (*F.lead, N). Lane k takes elements k*c .. k*c + c-1;
+    pads are infinity with key n_buckets. Returns (cols, signs cols or None,
+    keys cols (c, n_ch)).
 
     Streams below MIN_LEVEL_N, for which the JAX package runs no fused level,
     take the chunking of its unfused level (scan._segmented_reduce_xyzz:
@@ -306,8 +318,9 @@ def level_cols(curve, pts, signs, keys, n_buckets: int):
         cols = (g[..., :W].contiguous(), g[..., W:].contiguous())
         scols = to_cols(scans.pad_last(signs.to(torch.int32), pad))
     else:
-        cols = XyzzPoint(*(scans.pad_last(x, pad).reshape(W, n_ch, c)
-                           .permute(2, 0, 1).contiguous() for x in pts))
+        cols = XyzzPoint(*(scans.pad_last(x, pad)
+                           .reshape(curve.F.lead + (n_ch, c)).movedim(-1, 0)
+                           .contiguous() for x in pts))
         scols = None
     return cols, scols, kcols
 
@@ -315,12 +328,12 @@ def level_cols(curve, pts, signs, keys, n_buckets: int):
 def _run_level(curve, pts, signs, keys, buckets: XyzzPoint, n_buckets: int):
     """One K5 level over a key-sorted stream (see level_cols). Complete runs
     go into `buckets`; returns the next stream: heads and tails interleaved
-    (still key-sorted), as (XyzzPoint (W, 2 n_ch), keys)."""
-    W = curve.F.n_words
+    (still key-sorted), as (XyzzPoint (*F.lead, 2 n_ch), keys)."""
     head, tail, hk, tk = seg_level(
         curve, *level_cols(curve, pts, signs, keys, n_buckets), buckets,
         n_buckets)
-    lvl_pt = XyzzPoint(*(torch.stack([h, t], dim=-1).reshape(W, -1)
+    lvl_pt = XyzzPoint(*(torch.stack([h, t], dim=-1)
+                         .reshape(curve.F.lead + (-1,))
                          for h, t in zip(head, tail)))
     return lvl_pt, torch.stack([hk, tk], dim=-1).reshape(-1)
 

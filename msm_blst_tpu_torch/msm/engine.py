@@ -1,5 +1,6 @@
-"""The port's MSM algorithms over G1 (port of msm_blst_tpu/msm/engine.py:
-62-145, 148-189, 197-230, 278-300, 327-368, 643-750).
+"""The port's MSM algorithms over G1 and G2 (port of
+msm_blst_tpu/msm/engine.py: 62-145, 148-189, 197-230, 278-300, 327-368,
+643-750). Each takes its curve from the plan (`plan.curve`).
 
 * CHES "nh + 0.21q": `msm_ches_device` (on-device recode) and
   `msm_ches_host_recode` (host recode, the digit stream moved once to the
@@ -10,14 +11,14 @@
   bucket pass per window from the top window down, c doublings between.
 
 Each sorts its digit stream by bucket key and accumulates the buckets with
-one of two strategies (`bucket_impl`): "prefix" (prefix_pipeline, the
-default) or "segmented" (scan.segmented_reduce_affine, K5). The noindexhash
-variant and the big-n ranged driver are not ported yet.
+one of two strategies, chosen per call by the `bucket_impl` keyword:
+"prefix" (prefix_pipeline, the default) or "segmented"
+(scan.segmented_reduce_affine, K5). The noindexhash variant and the big-n
+ranged driver are not ported yet.
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -35,23 +36,16 @@ from .scan import (fold_xyzz, scan_fold_axis, segmented_reduce_affine,
 BUCKET_IMPLS = ("prefix", "segmented")
 
 
-def bucket_impl() -> str:
-    """The default bucket accumulation strategy: MSM_BUCKET_IMPL, 'prefix'
-    (prefix scan + boundary differences) unless it says 'segmented'
-    (head/tail/emission reduction)."""
-    return os.environ.get("MSM_BUCKET_IMPL", "prefix")
-
-
 def _bucket_sums_stream(curve, table, slots, keys, signs, n_buckets: int,
-                        impl: Optional[str] = None):
+                        impl: str):
     """Sort the digit stream by bucket key, then accumulate into buckets.
 
     slots/keys/signs: int/int/bool flat [N] streams. The (slot, sign)
     payload rides a stable sort on the keys, so the order inside a bucket
     is the stream order (JAX's unstable sort leaves it arbitrary; bucket
-    sums agree as points, not as xyzz words). `impl`: 'prefix' or
-    'segmented', default bucket_impl()."""
-    impl = impl or bucket_impl()
+    sums agree as points, not as xyzz words). `impl`: 'prefix' (prefix
+    scan + boundary differences) or 'segmented' (head/tail/emission
+    reduction)."""
     if impl not in BUCKET_IMPLS:
         raise ValueError(f"bucket_impl must be one of {BUCKET_IMPLS}, got {impl!r}")
     payload = (slots.to(torch.int32) << 1) | signs.to(torch.int32)
@@ -191,7 +185,7 @@ def _ches_query(plan: MsmPlan, slots, keys, signs, impl) -> JacPoint:
 
 
 def msm_ches_device(plan: MsmPlan, scalars: torch.Tensor,
-                    bucket_impl: Optional[str] = None) -> JacPoint:
+                    bucket_impl: str = "prefix") -> JacPoint:
     """CHES 'nh + 0.21q' MSM with on-device integral scalar conversion.
 
     scalars: int32[8, n] (recode.to_device) on the plan's device. Returns a
@@ -216,7 +210,7 @@ def msm_ches_device(plan: MsmPlan, scalars: torch.Tensor,
 
 
 def msm_ches_host_recode(plan: MsmPlan, scalars_np: np.ndarray,
-                         bucket_impl: Optional[str] = None) -> JacPoint:
+                         bucket_impl: str = "prefix") -> JacPoint:
     """CHES MSM with the recode on the host (the reference's method 1): the
     digit stream is computed with numpy and moved once to the plan's
     device, then sorted, accumulated and integrated there."""
@@ -236,7 +230,7 @@ def msm_ches_host_recode(plan: MsmPlan, scalars_np: np.ndarray,
 
 
 def msm_bgmw_device(plan: MsmPlan, scalars: torch.Tensor,
-                    bucket_impl: Optional[str] = None) -> JacPoint:
+                    bucket_impl: str = "prefix") -> JacPoint:
     """BGMW95 q/2 variant, fully on the device (reference main_p1.cpp:
     294-398). For tight configs (c*h <= 255) the top digit bound exceeds
     q/2, so the group-order fold a -> r - a (and a global sign flip) runs
@@ -263,7 +257,7 @@ def msm_bgmw_device(plan: MsmPlan, scalars: torch.Tensor,
 
 def msm_stock_pippenger(plan: MsmPlan, scalars: torch.Tensor,
                         window: Optional[int] = None, nbits: int = 255,
-                        bucket_impl: Optional[str] = None) -> JacPoint:
+                        bucket_impl: str = "prefix") -> JacPoint:
     """Stock Pippenger, no precomputation (reference multi_scalar.c:
     549-576): per window a bucket pass over the n points and a weighted
     integration, combined from the top window down with c doublings.

@@ -27,18 +27,20 @@ from .engine import MsmPlan, gap_groups
 _W = 8  # fixed-base window bits: a window digit is one byte of the scalar
 
 
-@functools.lru_cache(maxsize=1)
-def _fixed_base_table_host():
-    """T[j][d] = d * 2^(8j) * G as affine int pairs, built with the oracle."""
-    base = ref.GENERATOR
+@functools.lru_cache(maxsize=2)
+def _fixed_base_table_host(curve_name: str):
+    """T[j][d] = d * 2^(8j) * G as affine ints (pairs of ints for G1, of
+    int pairs for G2), built once per curve with the oracle."""
+    curve = ref.CURVES[curve_name]
+    base = curve.GENERATOR
     table = []
     for _ in range(256 // _W):
-        row = [ref.INF]
+        row = [curve.INF]
         for _d in range(1, 1 << _W):
-            row.append(ref.add(row[-1], base))
+            row.append(curve.add(row[-1], base))
         table.append(row)
         for _ in range(_W):
-            base = ref.add(base, base)
+            base = curve.add(base, base)
     return table
 
 
@@ -46,20 +48,18 @@ def fixed_base_mult(curve: CurveOps, scalars_ints, device=None) -> AffinePoint:
     """[e_0..e_{n-1}] ints -> affine batch of e_i * G (windowed fixed base),
     on `device` (default: the card)."""
     device = resolve(device)
-    if curve.name != "G1":
-        raise NotImplementedError("fixed_base_mult is ported for G1 only")
-    host_table = _fixed_base_table_host()
+    host_table = _fixed_base_table_host(curve.name)
     windows = len(host_table)
     rows = [curve.affine_from_ints(row, device=device) for row in host_table]
-    tx = torch.stack([r.X for r in rows])  # (windows, W, 2^w)
+    tx = torch.stack([r.X for r in rows])  # (windows, *F.lead, 2^w)
     ty = torch.stack([r.Y for r in rows])
     raw = b"".join((e % R_ORDER).to_bytes(32, "little") for e in scalars_ints)
     digits = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 32).T[:windows]
     digits = torch.as_tensor(digits.astype(np.int64), device=device)
     acc = curve.xyzz_inf((digits.shape[1],), device)
     for j in range(windows):
-        pts = AffinePoint(tx[j].index_select(1, digits[j]),
-                          ty[j].index_select(1, digits[j]))
+        pts = AffinePoint(tx[j].index_select(-1, digits[j]),
+                          ty[j].index_select(-1, digits[j]))
         acc = curve.xyzz_dadd_affine(acc, pts)
     return curve.xyzz_to_affine(acc)
 
@@ -74,7 +74,8 @@ def fixed_point_list(curve: CurveOps, n: int, device=None) -> AffinePoint:
 def _doubling_chain_tables(curve: CurveOps, points: AffinePoint, c: int,
                            h: int, with_m23: bool) -> XyzzPoint:
     """For j in 0..h-1 emit (q^j P_i [, 2 q^j P_i, 3 q^j P_i]), advancing by
-    c batched doublings per window. Coordinates shaped (h, n_m, W, n)."""
+    c batched doublings per window. Coordinates shaped (h, n_m, *F.lead,
+    n)."""
     cur = curve.xyzz_from_affine(points)
     slots = []
     for _ in range(h):
@@ -90,12 +91,15 @@ def _doubling_chain_tables(curve: CurveOps, points: AffinePoint, c: int,
 
 def _slots_to_affine_table(curve: CurveOps, slots: XyzzPoint,
                            n: int) -> AffinePoint:
-    """Flatten (h, n_m, W, n) slots into the reference's table order (slot =
-    n_m*(i*h+j)+(m-1), reference main_p1.cpp:100,163) and convert to affine
-    with one batched inversion per coordinate."""
+    """Flatten (h, n_m, *F.lead, n) slots into the reference's table order
+    (slot = n_m*(i*h+j)+(m-1), reference main_p1.cpp:100,163) and convert to
+    affine with one batched inversion per coordinate."""
     h, n_m = slots.X.shape[0], slots.X.shape[1]
-    flat = XyzzPoint(*(x.permute(2, 0, 1, 3).reshape(x.shape[2], h * n_m * n)
-                       for x in slots))  # (W, h*n_m*n) in (j, m, i) order
+    W = curve.F.n_words
+    # (*F.lead, h*n_m*n) in (j, m, i) order
+    flat = XyzzPoint(*(curve.from_words(
+        x.reshape(h, n_m, W, n).permute(2, 0, 1, 3).reshape(W, h * n_m * n))
+        for x in slots))
     aff = curve.xyzz_to_affine(flat)
     # dest slot s = n_m*(i*h+j)+(m-1) <- src = (j*n_m + m-1)*n + i
     i_ = np.arange(n)[:, None, None]

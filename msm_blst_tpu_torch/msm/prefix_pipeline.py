@@ -90,7 +90,8 @@ def buckets_from_boundaries(curve, local, tails: XyzzPoint, keys_s,
         kch = torch.div(pos, c, rounding_mode="floor")
         j = pos - kch * c
         g = rows.index_select(0, j * n_ch + kch)  # (B, 4W)
-        loc = XyzzPoint(*(x.T for x in torch.split(g, W, dim=1)))
+        loc = XyzzPoint(*(curve.from_words(x.T)
+                          for x in torch.split(g, W, dim=1)))
         val = curve.xyzz_dadd(curve.take(excl, kch), loc)
         return curve.select(idx1 == 0, curve.xyzz_inf(idx1.shape, dev), val)
 

@@ -35,7 +35,7 @@ def suffix_scan_xyzz(curve, pts: XyzzPoint,
     """Inclusive suffix sums S_i = sum_{j>=i} pts[j], full width. A 1-D
     batch goes through the level kernel (cuda_scan.prefix_scan_xyzz) on the
     flipped stream; torch.flip stands in for JAX's reversed slice."""
-    if pts.X.ndim == 2:
+    if pts.X.ndim == len(curve.F.lead) + 1:
         rev = XyzzPoint(*(torch.flip(c, dims=(-1,)) for c in pts))
         out = cuda_scan.prefix_scan_xyzz(curve, rev)
         return XyzzPoint(*(torch.flip(c, dims=(-1,)) for c in out))
@@ -56,7 +56,7 @@ def segmented_reduce_affine(curve, pts, signs, keys,
                             n_buckets: int) -> XyzzPoint:
     """Per-key sums of a key-sorted stream of signed affine points as an
     xyzz bucket array of n_buckets (bucket 0 included). `pts`: an
-    AffinePoint (W, N) or its PackedRows32 rows (N, 2W); keys ascending,
+    AffinePoint (*F.lead, N) or its PackedRows32 rows (N, 2W); keys ascending,
     entries with key >= n_buckets are dropped. K5 levels first
     (cuda_scan.segmented_reduce, the JAX package's fused structure), then
     _segmented_reduce_xyzz."""

@@ -2,10 +2,11 @@
 
 Run from the repository root on a machine with a CUDA device:
 
-    python3 scripts/torch_profile.py [--n-log 16] [--out report.json]
+    python3 scripts/torch_profile.py [--curve G1|G2] [--n-log 16] [--out report.json]
 
-Builds one plan with the CHES, BGMW95 and stock tables at n = 2^n_log
-(params.CONFIGS[n_log], fixed points P_i = 2^(i+1) G), then for each query
+Builds one plan over the curve (G1 or G2) with the CHES, BGMW95 and stock
+tables at n = 2^n_log (params.CONFIGS[n_log], fixed points
+P_i = 2^(i+1) G), then for each query
 (CHES with device and with host recoding; BGMW95 and stock Pippenger with
 each bucket strategy) runs one warm-up and one query under torch.profiler.
 It prints the query's host wall time, the device time its kernels took,
@@ -59,6 +60,7 @@ def profile_query(fn) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--curve", choices=("G1", "G2"), default="G1")
     ap.add_argument("--n-log", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2)
     ap.add_argument("--out", help="also write the report here as JSON")
@@ -69,7 +71,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
 
-    from msm_blst_tpu_torch.curves import G1
+    from msm_blst_tpu_torch import curves
     from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
                                         msm_bgmw_device, msm_ches_device,
                                         msm_ches_host_recode,
@@ -77,7 +79,8 @@ def main():
 
     dev = torch.device("cuda", 0)
     n = 1 << args.n_log
-    plan = build_plan(G1, fixed_point_list(G1, n, device=dev),
+    curve = getattr(curves, args.curve)
+    plan = build_plan(curve, fixed_point_list(curve, n, device=dev),
                       params.CONFIGS[args.n_log])
     host = recode.random_scalars(n, args.seed)
     sc = recode.to_device(host, dev)
@@ -92,7 +95,8 @@ def main():
         "stock segmented": lambda: msm_stock_pippenger(
             plan, sc, bucket_impl="segmented"),
     }
-    report = {"device": torch.cuda.get_device_name(0), "n": n, "queries": {}}
+    report = {"device": torch.cuda.get_device_name(0), "curve": args.curve,
+              "n": n, "queries": {}}
     for name, fn in queries.items():
         r = profile_query(fn)
         report["queries"][name] = r

@@ -183,12 +183,12 @@ def test_msm_bgmw_device_matches_jax(plans, jax_plan):
 
 
 @pytest.mark.parametrize("impl", IMPLS)
-def test_msm_ches_host_recode_matches_oracle(plans, impl, monkeypatch):
+def test_msm_ches_host_recode_matches_oracle(plans, impl):
     ints = _query_ints()
     sc = recode.scalars_from_ints(ints)
     assert _affine(msm_ches_host_recode(plans["aliased"], sc,
                                         bucket_impl=impl)) == _oracle(ints)
-    # the strategy's default comes from MSM_BUCKET_IMPL, as in the JAX package
-    monkeypatch.setenv("MSM_BUCKET_IMPL", impl)
-    assert _affine(msm_ches_host_recode(plans["aliased"], sc)) == _oracle(ints)
+    # the strategy is the keyword's alone: an unknown one is refused
+    with pytest.raises(ValueError, match="bucket_impl"):
+        msm_ches_host_recode(plans["aliased"], sc, bucket_impl=impl + "x")
 

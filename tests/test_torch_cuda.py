@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on a card: each against its plain version, and
-the CHES, host-recode CHES, BGMW95 and stock queries against the oracle.
+"""The port's CUDA kernels on a card, G1 and G2 instances: each against its
+plain version, and the CHES, host-recode CHES, BGMW95 and stock queries
+against the oracle.
 Every test carries the `gpu` marker and takes the `dev` fixture, which
 skips it without a CUDA device. On a machine with one:
 
@@ -14,9 +15,10 @@ import pytest
 import torch
 
 from msm_blst_tpu.constants import P, R_ORDER
-from msm_blst_tpu.refimpl import G1_REF
+from msm_blst_tpu.refimpl import G1_REF, G2_REF
 
 pytestmark = pytest.mark.gpu
+CURVES = ("G1", "G2")
 
 
 @pytest.fixture
@@ -26,11 +28,26 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _points(n, dev):
-    from msm_blst_tpu_torch.curves import G1
+def _curve(name):
+    from msm_blst_tpu_torch import curves
 
-    return G1.affine_from_ints(
-        [(x.v, y.v) for x, y in G1_REF.fixed_points(n)], device=dev)
+    return getattr(curves, name)
+
+
+def _ints(x):
+    return (x.c0.v, x.c1.v) if hasattr(x, "c0") else x.v
+
+
+def _oracle(name, total):
+    ref = G1_REF if name == "G1" else G2_REF
+    x, y = ref.to_affine(ref.jac_mult(total, ref.generator_jac()))
+    return _ints(x), _ints(y)
+
+
+def _points(n, dev, name="G1"):
+    ref = G1_REF if name == "G1" else G2_REF
+    return _curve(name).affine_from_ints(
+        [(_ints(x), _ints(y)) for x, y in ref.fixed_points(n)], device=dev)
 
 
 def test_mont_mul_kernel_matches_plain(dev):
@@ -46,62 +63,73 @@ def test_mont_mul_kernel_matches_plain(dev):
     assert torch.equal(got.cpu(), cuda_mont.mont_mul(a.cpu(), b.cpu(), FP))
 
 
-def test_point_kernels_match_plain(dev):
-    from msm_blst_tpu_torch.curves import G1, cuda_point
+@pytest.mark.parametrize("name", CURVES)
+def test_point_kernels_match_plain(dev, name):
+    from msm_blst_tpu_torch.curves import cuda_point
 
+    curve = _curve(name)
     B = 64
-    pts = _points(B, dev)
+    pts = _points(B, dev, name)
     lane = torch.arange(B, device=dev)
-    base = G1.xyzz_from_affine(pts)
-    acc = G1.select(lane == 0, G1.xyzz_inf((B,), dev), G1.xyzz_double(base))
-    acc = G1.select((lane == 1) | (lane == 2), base, acc)
+    base = curve.xyzz_from_affine(pts)
+    acc = curve.select(lane == 0, curve.xyzz_inf((B,), dev),
+                       curve.xyzz_double(base))
+    acc = curve.select((lane == 1) | (lane == 2), base, acc)
     signs = lane % 3 == 2
-    other = G1.xyzz_from_affine(pts, negate=signs)
+    other = curve.xyzz_from_affine(pts, negate=signs)
     pairs = [
-        (cuda_point.xyzz_dadd_affine(G1, acc, pts, signs),
-         cuda_point.xyzz_dadd_affine_plain(G1, acc, pts, signs)),
-        (cuda_point.xyzz_dadd(G1, acc, other),
-         cuda_point.xyzz_dadd_plain(G1, acc, other)),
-        (cuda_point.xyzz_double(G1, acc), cuda_point.xyzz_double_plain(G1, acc)),
+        (cuda_point.xyzz_dadd_affine(curve, acc, pts, signs),
+         cuda_point.xyzz_dadd_affine_plain(curve, acc, pts, signs)),
+        (cuda_point.xyzz_dadd(curve, acc, other),
+         cuda_point.xyzz_dadd_plain(curve, acc, other)),
+        (cuda_point.xyzz_double(curve, acc),
+         cuda_point.xyzz_double_plain(curve, acc)),
     ]
     for got, want in pairs:
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 
 
-def test_scan_kernels_match_plain(dev):
-    from msm_blst_tpu_torch.curves import G1, XyzzPoint
+@pytest.mark.parametrize("name", CURVES)
+def test_scan_kernels_match_plain(dev, name):
+    from msm_blst_tpu_torch.curves import XyzzPoint
     from msm_blst_tpu_torch.msm import cuda_scan
 
+    curve = _curve(name)
+    W = curve.F.n_words
     c, n_ch = 7, 256
-    rows = G1.to_rows32(_points(32, dev)).XY
+    rows = curve.to_rows32(_points(32, dev, name)).XY
     rng = np.random.default_rng(2)
     g = rows[torch.as_tensor(rng.integers(0, 32, size=c * n_ch), device=dev)]
-    rx = g[:, :12].reshape(c, n_ch, 12).contiguous()
-    ry = g[:, 12:].reshape(c, n_ch, 12).contiguous()
+    rx = g[:, :W].reshape(c, n_ch, W).contiguous()
+    ry = g[:, W:].reshape(c, n_ch, W).contiguous()
     sg = torch.as_tensor(rng.integers(0, 2, size=(c, n_ch)), device=dev)
-    local, tails = cuda_scan.affine_prefix_level(G1, rx, ry, sg)
-    wl, wt = cuda_scan.affine_prefix_level_plain(G1, rx, ry, sg)
+    local, tails = cuda_scan.affine_prefix_level(curve, rx, ry, sg)
+    wl, wt = cuda_scan.affine_prefix_level_plain(curve, rx, ry, sg)
     assert torch.equal(local, wl)
     assert all(torch.equal(a, b) for a, b in zip(tails, wt))
-    cols = XyzzPoint(*(local.reshape(c, n_ch, 4, 12)[:, :, i].permute(0, 2, 1)
-                       .contiguous() for i in range(4)))
-    got = cuda_scan.xyzz_scan_level(G1, cols)
-    want = cuda_scan.xyzz_scan_level_plain(G1, cols)
+    cols = XyzzPoint(*(local.reshape(c, n_ch, 4, W)[:, :, i].permute(0, 2, 1)
+                       .reshape((c,) + curve.F.lead + (n_ch,)).contiguous()
+                       for i in range(4)))
+    got = cuda_scan.xyzz_scan_level(curve, cols)
+    want = cuda_scan.xyzz_scan_level_plain(curve, cols)
     for gp, wp in zip(got, want):
         assert all(torch.equal(a, b) for a, b in zip(gp, wp))
 
 
-def test_seg_kernels_match_plain(dev):
+@pytest.mark.parametrize("name", CURVES)
+def test_seg_kernels_match_plain(dev, name):
     """K5, both variants, on sorted duplicate-heavy keys with a point four
     times in one run (a doubling), a cancellation and pads: heads, tails,
     keys and the bucket array updated in place equal the plain version's."""
-    from msm_blst_tpu_torch.curves import G1, AffinePoint, XyzzPoint
+    from msm_blst_tpu_torch.curves import AffinePoint, XyzzPoint
     from msm_blst_tpu_torch.msm import cuda_scan
 
+    curve = _curve(name)
+    W = curve.F.n_words
     c, n_ch, n_buckets = 6, 256, 300
     rng = np.random.default_rng(3)
-    rows = G1.to_rows32(_points(32, dev)).XY
+    rows = curve.to_rows32(_points(32, dev, name)).XY
     slots = torch.as_tensor(rng.integers(0, 32, c * n_ch), device=dev)
     slots[10:14] = slots[10]
     keys = torch.as_tensor(np.sort(rng.integers(0, n_buckets, c * n_ch)),
@@ -116,60 +144,62 @@ def test_seg_kernels_match_plain(dev):
         return x.reshape(n_ch, c, *x.shape[1:]).transpose(0, 1).contiguous()
 
     g = rows.index_select(0, slots)
-    rx, ry = to_cols(g[:, :12]), to_cols(g[:, 12:])
+    rx, ry = to_cols(g[:, :W]), to_cols(g[:, W:])
     sc, kc = to_cols(signs), to_cols(keys)
-    lifted = G1.xyzz_double(G1.xyzz_from_affine(
-        AffinePoint(rx.reshape(-1, 12).T.contiguous(),
-                    ry.reshape(-1, 12).T.contiguous()),
+    lifted = curve.xyzz_double(curve.xyzz_from_affine(
+        AffinePoint(curve.from_words(rx.reshape(-1, W).T),
+                    curve.from_words(ry.reshape(-1, W).T)),
         negate=sc.reshape(-1) != 0))
-    cols = XyzzPoint(*(x.reshape(12, c, n_ch).permute(1, 0, 2).contiguous()
-                       for x in lifted))
+    cols = XyzzPoint(*(x.reshape(curve.F.lead + (c, n_ch)).movedim(-2, 0)
+                       .contiguous() for x in lifted))
     for args in (((rx, ry), sc, kc), (cols, None, kc)):
         outs = []
         for fn in (cuda_scan.seg_level, cuda_scan.seg_level_plain):
-            buckets = cuda_scan.bucket_array(G1, n_buckets, dev)
-            head, tail, hk, tk = fn(G1, *args, buckets, n_buckets)
+            buckets = cuda_scan.bucket_array(curve, n_buckets, dev)
+            head, tail, hk, tk = fn(curve, *args, buckets, n_buckets)
             outs.append([*buckets, *head, *tail, hk, tk])
         assert all(torch.equal(a, b) for a, b in zip(*outs))
         assert bool((outs[0][3] != 0).any())  # some run reached a bucket
 
 
-def test_msm_algorithms_on_the_card(dev):
+@pytest.mark.parametrize("name", CURVES)
+def test_msm_algorithms_on_the_card(dev, name):
     """Host-recode CHES, BGMW95 (the r - a fold: c'=5, h'=51) and stock
     Pippenger (window 8), each with both bucket strategies."""
-    from msm_blst_tpu_torch.curves import G1
     from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
                                         msm_bgmw_device, msm_ches_host_recode,
                                         msm_stock_pippenger, params, recode)
 
+    curve = _curve(name)
     n = 64
-    plan = build_plan(G1, fixed_point_list(G1, n, device=dev),
+    plan = build_plan(curve, fixed_point_list(curve, n, device=dev),
                       params.make_config(6, c=8, h=32, c_bgmw=5, h_bgmw=51))
     ints = recode.scalars_to_ints(recode.random_scalars(n, seed=2))
     ints[0], ints[1], ints[2] = 0, R_ORDER - 1, ints[3]
     host = recode.scalars_from_ints(ints)
     sc = recode.to_device(host, dev)
     total = sum(s * pow(2, i + 1, R_ORDER) for i, s in enumerate(ints)) % R_ORDER
-    x, y = G1_REF.to_affine(G1_REF.jac_mult(total, G1_REF.generator_jac()))
     for impl in ("prefix", "segmented"):
         for jac in (msm_ches_host_recode(plan, host, bucket_impl=impl),
                     msm_bgmw_device(plan, sc, bucket_impl=impl),
                     msm_stock_pippenger(plan, sc, window=8, bucket_impl=impl)):
-            assert G1.affine_to_ints(G1.jac_to_affine(jac))[0] == (x.v, y.v)
+            got = curve.affine_to_ints(curve.jac_to_affine(jac))[0]
+            assert got == _oracle(name, total)
 
 
-def test_msm_ches_device_on_the_card(dev):
-    from msm_blst_tpu_torch.curves import G1
+@pytest.mark.parametrize("name", CURVES)
+def test_msm_ches_device_on_the_card(dev, name):
     from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
                                         msm_ches_device, params, recode)
 
+    curve = _curve(name)
     n = 64
-    plan = build_plan(G1, fixed_point_list(G1, n, device=dev),
+    plan = build_plan(curve, fixed_point_list(curve, n, device=dev),
                       params.make_config(6, c=8, h=32))
     ints = recode.scalars_to_ints(recode.random_scalars(n, seed=1))
     ints[0], ints[1], ints[2] = 0, R_ORDER - 1, ints[3]
     jac = msm_ches_device(plan, recode.to_device(
         recode.scalars_from_ints(ints), dev))
     total = sum(s * pow(2, i + 1, R_ORDER) for i, s in enumerate(ints)) % R_ORDER
-    x, y = G1_REF.to_affine(G1_REF.jac_mult(total, G1_REF.generator_jac()))
-    assert G1.affine_to_ints(G1.jac_to_affine(jac))[0] == (x.v, y.v)
+    got = curve.affine_to_ints(curve.jac_to_affine(jac))[0]
+    assert got == _oracle(name, total)

@@ -116,10 +116,10 @@ def test_constants_match_jax():
 
 @pytest.mark.parametrize("case", ["add", "double", "cancel", "inf", "mult"])
 def test_host_oracle_matches_jax(case):
-    """msm_blst_tpu_torch.refimpl (affine ints) against the JAX package's
+    """msm_blst_tpu_torch.refimpl.G1 (affine ints) against the JAX package's
     Jacobian oracle G1_REF, in affine."""
     from msm_blst_tpu.refimpl import G1_REF
-    from msm_blst_tpu_torch import refimpl as ref
+    from msm_blst_tpu_torch.refimpl import G1 as ref
 
     def jref(k):
         x, y = G1_REF.to_affine(G1_REF.jac_mult(k, G1_REF.generator_jac()))

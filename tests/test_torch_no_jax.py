@@ -1,15 +1,22 @@
 """The port stands apart from JAX and from the JAX package, its entry
 points refuse to run without a card unless the caller asks for the CPU, and
 its chip smoke refuses to run without a card or without the repository.
+Its kernel table binds C entry points that its CUDA sources define.
 
-Both run in subprocesses, so this test process's own imports (pytest's
-conftest imports jax) do not count.
+The import checks run in subprocesses, so this test process's own imports
+(pytest's conftest imports jax) do not count.
 """
 
+import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+
+from msm_blst_tpu_torch import kernels
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -30,18 +37,26 @@ def test_port_modules_never_import_jax():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 22  # every module of the package
+    assert int(r.stdout.strip()) >= 23  # every module of the package
 
 
-def test_entry_points_default_to_the_card():
-    code = ("from msm_blst_tpu_torch.curves import G1\n"
+def _refuses_without_a_card(curve: str):
+    code = (f"from msm_blst_tpu_torch.curves import {curve}\n"
             "from msm_blst_tpu_torch.msm import fixed_point_list\n"
-            "fixed_point_list(G1, 4)\n")
+            f"fixed_point_list({curve}, 4)\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert "RuntimeError" in r.stderr and "no CUDA device" in r.stderr, r.stderr
+
+
+def test_entry_points_default_to_the_card():
+    _refuses_without_a_card("G1")
+
+
+def test_g2_entry_points_default_to_the_card():
+    _refuses_without_a_card("G2")
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -59,3 +74,19 @@ def test_chip_smoke_fails_alone(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("name", [k.name for k in kernels.ALL_KERNELS])
+def test_kernel_table_matches_its_source(name):
+    """The C symbol a kernel is bound to is defined in its source, with the
+    argument types its ctypes binding passes (the stream last)."""
+    k = next(k for k in kernels.ALL_KERNELS if k.name == name)
+    src = (kernels.CSRC / k.source).read_text()
+    m = re.search(r'extern "C" int ' + k.symbol + r"\(([^)]*)\)", src)
+    assert m, f"{k.symbol} not in {k.source}"
+    params = [" ".join(a.split()) for a in m.group(1).split(",")]
+    assert params[-1] == "void* stream"
+    ctype = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
+    want = [ctypes.c_void_p if "*" in a else ctype[a.rsplit(" ", 1)[0]]
+            for a in params[:-1]]
+    assert k.argtypes == want
