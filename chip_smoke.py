@@ -8,28 +8,38 @@ Phases, each reported on its own lines:
      device;
   2. build: compiles msm_blst_tpu_torch/csrc/*.cu (one nvcc per source, in
      parallel) and reports the time and each kernel's registers and spills;
-  3. kernels: each CUDA kernel, G1 and G2 instances, against its plain
-     PyTorch version on the card at the shapes of the n=2^16 paths, exact
-     equality, with CUDA-event times of both and the least time the card
-     could take for the same work (bytes or integer multiply-adds);
-  4. main path: the G1 CHES n=2^16 query (params.CONFIGS[16]) — fixed
+  3. drivers: the three measurement drivers of the port (microbench,
+     mxu_experiment, gather_bench) at the JAX drivers' shapes, each
+     printing its JSON lines and counting its launches on its own; the
+     microbench's K7 and int8 matmul rates are the measured anchors beside
+     the published peaks in every bound below;
+  4. kernels: each CUDA kernel, G1 and G2 instances, K6 at every stage, K7
+     for each dtype and K8, against its plain PyTorch version on the card at
+     the shapes of the n=2^16 paths and the drivers, exact equality, with
+     CUDA-event times of both, of the library call where one computes the
+     same function, and the least time the card could take for the same
+     work (bytes, integer multiply-adds, tensor-core MACs or FMAs);
+  5. main path: the G1 CHES n=2^16 query (params.CONFIGS[16]) — fixed
      points, the plan, one warm-up and five timed scalar sets — with every
      result checked against the pure-Python oracle and every kernel of the
-     path launched;
-  5. algorithms: one G1 plan with the CHES, BGMW95 and stock tables at the
+     path launched; then the same under the SOS multiply (mul_impl="sos",
+     plan build included), which must launch K6 and never K1;
+  6. algorithms: one G1 plan with the CHES, BGMW95 and stock tables at the
      same n and config; host-recode CHES, BGMW95 and stock Pippenger, BGMW
      and stock with both bucket strategies (prefix, segmented), each query
      checked against the oracle; the plan build and each path count their
      launches on their own: every kernel of the path (K5's two variants on
      the segmented ones) launched, none of the other strategy's;
-  6. g2: phases 4 and 5 over G2 at the same n and config, each path
-     launching the G2 kernels (and K1, which Fp2's products run through)
-     and none of the G1 point and level kernels;
-  7. a JSON line of per-kernel results, then the final status line.
+  7. g2: phases 5 and 6 over G2 at the same n and config (the SOS query
+     on two scalar sets), each path launching the G2 kernels (and K1 or
+     K6, which Fp2's products run through) and none of the G1 point and
+     level kernels;
+  8. a JSON line of per-kernel results, then the final status line.
 
 It catches no exception: any failure exits non-zero before the last line.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -41,15 +51,21 @@ import torch
 N_LOG = 16
 WARM_SEED = 1
 SEEDS = (2, 3, 4, 5, 6)
-ALGO_SEEDS = (7, 8, 9)  # timed scalar sets of phase 5 (stock: the first two)
+ALGO_SEEDS = (7, 8, 9)  # timed scalar sets of phase 6 (stock: the first two)
 G2_ALGO_SEEDS = (7, 8)  # and of its G2 run (stock: the first one)
+G2_SOS_SEEDS = (2, 3)  # timed scalar sets of the G2 query under SOS
 
-# The least time the card could take (the bound): the larger of the bytes a
-# kernel must move over the memory rate, and its integer multiply-adds over
-# the SMs' rate. H100 SXM: 3.35 TB/s; 132 SMs, each 64 32-bit integer
-# multiply-adds per clock, at the top SM clock nvidia-smi reports.
+# The least time the card could take (the bound): the largest of the bytes a
+# kernel must move over the memory rate and its operations over the rate of
+# the unit that runs them. H100 SXM: 3.35 TB/s; 132 SMs, each 64 32-bit
+# integer multiply-adds and 128 float32 FMAs per clock at the top SM clock
+# nvidia-smi reports; 1,979 TOP/s of int8 on the tensor cores (989.5e12
+# MACs). Where the microbench measured a higher rate on this card, the
+# bound takes that one: a bound must not exceed what the card can do.
 HBM_BYTES_PER_S = 3.35e12
-SMS, IMAD_PER_CLOCK = 132, 64
+SMS, IMAD_PER_CLOCK, FFMA_PER_CLOCK = 132, 64, 128
+INT8_MAC_PER_S = 1979e12 / 2
+MEASURED = {}  # "imad", "ffma", "int8_mac": rates the microbench measured
 # A 12-word CIOS Montgomery product (csrc/fp.cuh mont_mul): 288 word
 # products with 64-bit results (two multiply-adds each) and 12 low halves.
 IMAD_PER_MONT = 2 * 288 + 12
@@ -85,25 +101,12 @@ class CurveCase:
         return self.per_mul * formula[0] + self.per_sqr * formula[1]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over `reps` calls, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def max_abs_err(got, want) -> int:
     return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                for g, w in zip(got, want))
 
 
+@functools.lru_cache(maxsize=None)
 def top_sm_mhz() -> float:
     return float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -111,14 +114,24 @@ def top_sm_mhz() -> float:
         capture_output=True, text=True, check=True).stdout.split()[0])
 
 
-def imad_per_s() -> float:
-    return SMS * IMAD_PER_CLOCK * top_sm_mhz() * 1e6
+def peak_rates() -> dict:
+    """Operations a second by unit: the published peak, or the measured
+    rate where it is higher."""
+    clock = top_sm_mhz() * 1e6
+    peak = {"imad": SMS * IMAD_PER_CLOCK * clock,
+            "ffma": SMS * FFMA_PER_CLOCK * clock, "int8_mac": INT8_MAC_PER_S}
+    return {k: max(v, MEASURED.get(k, 0.0)) for k, v in peak.items()}
 
 
-def bound(n_bytes: float, n_mont: float) -> dict:
-    """The larger of the two least times, in ms, and which one it is."""
+def bound(n_bytes: float, n_mont: float = 0, imad: float = 0,
+          ffma: float = 0, int8_mac: float = 0) -> dict:
+    """The largest of the least times, in ms, and which one it is: bytes
+    over the memory rate, and each unit's operations (n_mont Montgomery
+    products count IMAD_PER_MONT IMADs each) over its rate."""
+    rates = peak_rates()
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_mont * IMAD_PER_MONT / imad_per_s() * 1e3
+    t_ops = max((imad + n_mont * IMAD_PER_MONT) / rates["imad"],
+                ffma / rates["ffma"], int8_mac / rates["int8_mac"]) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -166,40 +179,100 @@ def _random_fp(n: int, seed: int, dev) -> torch.Tensor:
 
 
 def phase_kernels(dev):
-    """Every kernel against its plain version: K1, then K2-K5 for G1 and for
-    G2 at the shapes of their n = 2^16 paths."""
+    """Every kernel against its plain version: K1 and K6's stages, K2-K5 for
+    G1 and for G2 at the shapes of their n = 2^16 paths, then K7 and K8 at
+    the drivers' shapes."""
     from msm_blst_tpu_torch.fields import cuda_mont
     from msm_blst_tpu_torch.fields.limb import FP
+    from msm_blst_tpu_torch.utils.profiling import device_ms
 
     results = {}
 
-    def record(name, kernel_fn, plain_fn, reps, plain_reps, n_bytes, n_mont):
+    def record(name, kernel_fn, plain_fn, reps, plain_reps, n_bytes,
+               n_mont=0, library_fn=None, **ops):
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err = max_abs_err(got, want)
-        ms = cuda_ms(kernel_fn, reps)
-        plain_ms = cuda_ms(plain_fn, plain_reps)
-        b = bound(n_bytes, n_mont)
+        ms = device_ms(kernel_fn, reps)
+        plain_ms = device_ms(plain_fn, plain_reps)
+        library_ms = None if library_fn is None else device_ms(library_fn, reps)
+        b = bound(n_bytes, n_mont, **ops)
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         print(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"plain {plain_ms:.4f} ms{lib}, bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})")
         if err != 0:
             raise AssertionError(f"{name}: kernel and plain version differ")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         **b, "library_ms": None}
+                         **b, "library_ms": library_ms}
 
-    # K1 on 2^20 elements
+    # K1 and K6 on 2^20 elements
     a = _random_fp(1 << 20, 11, dev)
     b = _random_fp(1 << 20, 12, dev).flip(1).contiguous()
+    B = a.shape[1]
     record("mont_mul", lambda: cuda_mont.mont_mul(a, b, FP),
            lambda: cuda_mont.mont_mul_plain(a, b, FP), 20, 2,
-           3 * FP_BYTES * a.shape[1], a.shape[1])
+           3 * FP_BYTES * B, B)
+    sos_kernels(dev, a, b, record)
     for name in ("G1", "G2"):
         curve_kernels(dev, CurveCase(name), record)
+    driver_kernels(dev, record)
     return results
+
+
+# K6's work an element by stage: the full product's IMADs (144 word
+# products, two each) and the mmas' u8 MACs without the k padding (T's 48
+# bytes against the 48 rows of m, then m's 48 against the 96 rows of m*p)
+SOS_IMAD = 2 * 144
+SOS_MACS = {"prod": 0, "bytes": 0, "mm1": 48 * 48, "full": 48 * 48 + 96 * 48}
+
+
+def sos_kernels(dev, a, b, record):
+    """K6 at every stage against its plain version on K1's inputs; the full
+    stage equals K1 too."""
+    from msm_blst_tpu_torch.fields import cuda_mont, sos
+    from msm_blst_tpu_torch.fields.limb import FP
+
+    B = a.shape[1]
+    if not torch.equal(sos.sos_mul(a, b, FP), cuda_mont.mont_mul(a, b, FP)):
+        raise AssertionError("sos_mul differs from mont_mul")
+    for stage in sos.STAGES:
+        name = "sos_mul" if stage == "full" else f"sos_mul_{stage}"
+        record(name, lambda: sos.sos_stage(a, b, FP, stage),
+               lambda: sos.sos_stage_plain(a, b, FP, stage), 20, 2,
+               3 * FP_BYTES * B, imad=SOS_IMAD * B,
+               int8_mac=SOS_MACS[stage] * B)
+
+
+# K7's checked and timed chain in chip_smoke: the drivers' (256, 1024)
+# elements, CHECK_STEPS steps of 16 multiply-adds (the microbench runs the
+# full 32768 steps)
+CHECK_STEPS = 512
+
+
+def driver_kernels(dev, record):
+    """K7 for each dtype at the microbench's shape on a shorter chain, and
+    K8 on the gather bench's table and indices, torch.take its library
+    call."""
+    from msm_blst_tpu_torch.drivers import gather_bench, microbench
+
+    for dtype in microbench.DTYPES:
+        a, b = microbench.madd_chain_inputs(dtype, device=dev)
+        n_madd = microbench.CHAIN * CHECK_STEPS * a.numel()
+        unit = {"ffma" if dtype == "float32" else "imad": n_madd}
+        record(f"madd_chain_{dtype}",
+               lambda: microbench.madd_chain(a, b, CHECK_STEPS, dtype),
+               lambda: microbench.madd_chain_plain(a, b, CHECK_STEPS, dtype),
+               5, 1, 3 * 4 * a.numel(), **unit)
+    d = gather_bench.inputs(device=dev)
+    T, N = d["table"].numel(), d["idx"].numel()
+    record("gather_smem", lambda: gather_bench.gather_smem(d["table"], d["idx"]),
+           lambda: gather_bench.gather_plain(d["table"], d["idx"]), 20, 5,
+           4 * (T + 2 * N),
+           library_fn=lambda: torch.take(d["table"], d["idx64"]))
 
 
 def curve_kernels(dev, case, record):
@@ -414,21 +487,32 @@ STRATEGY_KERNELS = {"prefix": ["affine_prefix_level"],
                     "segmented": ["seg_level_affine", "seg_level_xyzz"]}
 
 
-def path_kernels(case, ops, impl=None):
-    """(kernels the path must launch, kernels it must not), by name: K1 and
-    the curve's kernels of `ops`; not another curve's K2-K5, nor the other
-    bucket strategy's (when `impl` is given)."""
+# The multiply each mul_impl launches for every unfused field product
+MUL_KERNEL = {"cios": "mont_mul", "sos": "sos_mul"}
+
+
+def path_kernels(case, ops, impl=None, mul_impl="cios"):
+    """(kernels the path must launch, kernels it must not), by name: the
+    multiply of `mul_impl` (K1 or K6) and the curve's kernels of `ops`; not
+    the other multiply, K6's partial stages, another curve's K2-K5, the
+    drivers' K7 and K8, nor the other bucket strategy's (when `impl` is
+    given)."""
+    mul = MUL_KERNEL[mul_impl]
     unused = [k.name for k in counters().values()
-              if k.op in case.kernels and k is not case.kernels[k.op]]
+              if (k.op in case.kernels and k is not case.kernels[k.op])
+              or (k.op in ("mont_mul", "sos_mul") and k.name != mul)
+              or k.op in ("madd_chain", "gather_smem")]
     if impl is not None:
         unused += [case.name(op) for s, ops_s in STRATEGY_KERNELS.items()
                    if s != impl for op in ops_s]
-    return ["mont_mul"] + [case.name(op) for op in ops], unused
+    return [mul] + [case.name(op) for op in ops], unused
 
 
 def oracle_check(case, n: int):
-    """check(seed, jac): the query's result must be the oracle's
-    (sum s_i 2^(i+1) mod r) * G for the scalars of `seed`."""
+    """check(seed, jac, curve): the query's result must be the oracle's
+    (sum s_i 2^(i+1) mod r) * G for the scalars of `seed`; `curve` (the
+    plan's, by default the case's) converts it to affine, so a path's
+    check runs on the path's own multiply."""
     from msm_blst_tpu_torch import refimpl
     from msm_blst_tpu_torch.constants import R_ORDER
     from msm_blst_tpu_torch.msm import recode
@@ -436,52 +520,57 @@ def oracle_check(case, n: int):
     ref = refimpl.CURVES[case.curve.name]
     weights = [pow(2, i + 1, R_ORDER) for i in range(n)]
 
-    def check(seed, jac):
+    def check(seed, jac, curve=case.curve):
         ints = recode.scalars_to_ints(recode.random_scalars(n, seed))
         total = sum(s * e for s, e in zip(ints, weights)) % R_ORDER
-        got = case.curve.affine_to_ints(case.curve.jac_to_affine(jac))[0]
+        got = curve.affine_to_ints(curve.jac_to_affine(jac))[0]
         if got != ref.mult(total):
             raise AssertionError(f"{case.curve.name} seed {seed}: MSM "
                                  "differs from the oracle")
     return check
 
 
-def phase_main_path(dev, case):
+def phase_main_path(dev, case, mul_impl="cios", seeds=SEEDS):
     """The CHES device-recode query at n = 2^16 (CONFIGS[16]): fixed
-    points, the CHES-only plan, one warm-up and five timed scalar sets."""
+    points, the CHES-only plan, one warm-up and the timed scalar sets
+    `seeds`, every unfused field product (plan build included) on the
+    multiply of `mul_impl`."""
     from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
                                         msm_ches_device, params, recode)
 
-    curve, label = case.curve, f"{case.curve.name} main path"
+    curve = case.curve
+    label = f"{curve.name} main path" + (
+        "" if mul_impl == "cios" else f" ({mul_impl} multiply)")
     n = 1 << N_LOG
     cfg = params.CONFIGS[N_LOG]
     check = oracle_check(case, n)
     scalars = {s: recode.to_device(recode.random_scalars(n, s), dev)
-               for s in (WARM_SEED,) + SEEDS}
+               for s in (WARM_SEED,) + seeds}
     reset_counts()
     t0 = time.perf_counter()
-    points = fixed_point_list(curve, n, device=dev)
-    plan = build_plan(curve, points, cfg, bgmw=False, stock=False)
+    points = fixed_point_list(curve, n, device=dev, mul_impl=mul_impl)
+    plan = build_plan(curve, points, cfg, bgmw=False, stock=False,
+                      mul_impl=mul_impl)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     print(f"{label}: n=2^{N_LOG}, c={cfg.c}, h={cfg.h}, |B|={cfg.b_size}, "
           f"table {tuple(plan.table3nh.XY.shape)}; fixed points + plan "
           f"{build_s:.3f} s")
-    check(WARM_SEED, msm_ches_device(plan, scalars[WARM_SEED]))
+    check(WARM_SEED, msm_ches_device(plan, scalars[WARM_SEED]), plan.curve)
     times = []
-    for s in SEEDS:
+    for s in seeds:
         torch.cuda.synchronize()
         t = time.perf_counter()
         jac = msm_ches_device(plan, scalars[s])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-        check(s, jac)
-    print(f"{label}: {len(SEEDS)} queries equal to the oracle; query mean "
+        check(s, jac, plan.curve)
+    print(f"{label}: {len(seeds)} queries equal to the oracle; query mean "
           f"{1e3 * sum(times) / len(times):.3f} ms, min {1e3 * min(times):.3f}"
           f" ms")
     return read_counts(label, *path_kernels(
         case, ["point_dadd_affine"] + QUERY_KERNELS + ["affine_prefix_level"],
-        "prefix"))
+        "prefix", mul_impl))
 
 
 def phase_algorithms(dev, case, seeds):
@@ -545,19 +634,58 @@ def phase_algorithms(dev, case, seeds):
     return paths
 
 
-# The TPU kernel each op replaces (the point formulas share one builder,
-# the segmented levels another)
+def phase_drivers(dev):
+    """The three drivers at the JAX drivers' shapes, each printing its JSON
+    lines, each counting its launches on its own. The microbench's K7 and
+    int8 matmul rates become the measured anchors of the bounds."""
+    from msm_blst_tpu_torch.drivers import gather_bench, microbench, mxu_experiment
+
+    paths = {}
+    reset_counts()
+    recs = microbench.run(device=dev)
+    paths["driver_microbench"] = read_counts(
+        "driver microbench", [f"madd_chain_{d}" for d in microbench.DTYPES]
+        + ["mont_mul", "sos_mul", "point_dadd_affine"])
+    rate = {r["metric"]: r["value"] for r in recs}
+    MEASURED.update(imad=rate["madd_chain_uint32_ops_per_s"] / 2,
+                    ffma=rate["madd_chain_float32_ops_per_s"] / 2,
+                    int8_mac=rate["matmul_int8_to_int32_macs_per_s"])
+    print(f"measured: {MEASURED}; published peaks at the top SM clock: "
+          f"IMAD {SMS * IMAD_PER_CLOCK * top_sm_mhz() * 1e6:.4g}/s, FFMA "
+          f"{SMS * FFMA_PER_CLOCK * top_sm_mhz() * 1e6:.4g}/s, int8 MAC "
+          f"{INT8_MAC_PER_S:.4g}/s")
+    reset_counts()
+    mxu_experiment.run(device=dev)
+    paths["driver_mxu_experiment"] = read_counts(
+        "driver mxu_experiment", ["mont_mul", "sos_mul", "sos_mul_prod",
+                                  "sos_mul_bytes", "sos_mul_mm1"])
+    reset_counts()
+    gather_bench.run(device=dev)
+    paths["driver_gather_bench"] = read_counts("driver gather_bench",
+                                               ["gather_smem"])
+    return paths
+
+
+# The TPU kernel each kernel replaces, by name or by op (the point formulas
+# share one builder, the segmented levels another, K6's partial stages the
+# experiment's `make`)
 _PALLAS = {
     "mont_mul": "msm_blst_tpu/fields/pallas_mont.py:281",
+    "sos_mul": "msm_blst_tpu/fields/pallas_mont.py:309",
     "point": "msm_blst_tpu/curves/pallas_point.py:49",
     "affine_prefix_level": "msm_blst_tpu/msm/pallas_scan.py:463",
     "xyzz_scan_level": "msm_blst_tpu/msm/pallas_scan.py:367",
     "seg": "msm_blst_tpu/msm/pallas_scan.py:93",
+    "madd_chain": "drivers/microbench.py:44",
+    "gather_smem": "drivers/gather_bench.py:95",
 }
+_PALLAS.update({f"sos_mul_{stage}": "drivers/mxu_experiment.py:81"
+                for stage in ("prod", "bytes", "mm1")})
 
 
-def replaces(op: str) -> str:
-    return _PALLAS.get(op) or _PALLAS[op.split("_")[0]]
+def replaces(k) -> str:
+    return (_PALLAS.get(k.name) or _PALLAS.get(k.op)
+            or _PALLAS[k.op.split("_")[0]])
 
 
 def main():
@@ -565,18 +693,22 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
+    paths = phase_drivers(dev)
     results = phase_kernels(dev)
     g1, g2 = CurveCase("G1"), CurveCase("G2")
-    paths = {"G1_ches_device": phase_main_path(dev, g1),
-             **phase_algorithms(dev, g1, ALGO_SEEDS),
-             "G2_ches_device": phase_main_path(dev, g2),
-             **phase_algorithms(dev, g2, G2_ALGO_SEEDS)}
+    paths.update({
+        "G1_ches_device": phase_main_path(dev, g1),
+        "G1_ches_device_sos": phase_main_path(dev, g1, "sos"),
+        **phase_algorithms(dev, g1, ALGO_SEEDS),
+        "G2_ches_device": phase_main_path(dev, g2),
+        "G2_ches_device_sos": phase_main_path(dev, g2, "sos", G2_SOS_SEEDS),
+        **phase_algorithms(dev, g2, G2_ALGO_SEEDS)})
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
         {"name": k.name, "route": "cuda",
          "source": f"msm_blst_tpu_torch/csrc/{k.source}",
-         "replaces": replaces(k.op),
+         "replaces": replaces(k),
          "launches": sum(p[k.name] for p in paths.values()),
          "launches_by_path": {name: p[k.name] for name, p in paths.items()},
          **results[k.name]}

@@ -13,7 +13,8 @@ additions around it, and `add`, `sub` and `neg`, run the base field once
 over both components (and all pairs) side by side, as an int32[12, 2, ...]
 batch: one set of tensor ops where a component at a time would take two.
 Every component stays canonical, so any correct product gives the JAX
-package's words.
+package's words. The base field's `mul_impl` picks the kernel those
+products run on (K1 or K6); `fp2_for` gives the Fp2 over either.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import functools
 
 import torch
 
-from .limb import FP, LimbField
+from .limb import FP, LimbField, fp_for
 
 
 class Fp2Ops:
@@ -31,6 +32,7 @@ class Fp2Ops:
     def __init__(self, base: LimbField):
         self.base = base
         self.kernels = base.kernels
+        self.mul_impl = base.mul_impl
         self.lead = (2,) + base.lead  # axes in front of the batch
         self.n_words = 2 * base.n_words  # words of one element, c0 then c1
 
@@ -147,3 +149,10 @@ class Fp2Ops:
 
 
 FP2 = Fp2Ops(FP)
+
+
+@functools.lru_cache(maxsize=None)
+def fp2_for(mul_impl: str = "cios") -> Fp2Ops:
+    """Fp2 over the base field whose multiply is `mul_impl` (FP2 for
+    "cios")."""
+    return FP2 if mul_impl == "cios" else Fp2Ops(fp_for(mul_impl))

@@ -13,10 +13,12 @@ Port of msm_blst_tpu/fields/limb.py. Layout:
   uint32 arithmetic on the CPU, and `>>` on int32 is arithmetic, so words
   are masked into int64 before any shift.
 
-`LimbField.mul` is the one operation with a kernel (fields/cuda_mont.py): on
-a CUDA tensor it launches the Hopper Montgomery multiply, on a CPU tensor it
-runs the plain version. Adds, subtracts and selects are plain tensor code on
-either device, as they were XLA code in the JAX package.
+`LimbField.mul` is the one operation with a kernel, chosen per field by the
+`mul_impl` keyword (the JAX package's pallas_mont.mul_impl): "cios" (the
+default, K1, fields/cuda_mont.py) or "sos" (K6, fields/sos.py). On a CUDA
+tensor it launches that kernel, on a CPU tensor it runs the kernel's plain
+version; both give the same words. Adds, subtracts and selects are plain
+tensor code on either device, as they were XLA code in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
 WORD_BITS = 32
 WORD_MASK = (1 << WORD_BITS) - 1
+MUL_IMPLS = ("cios", "sos")
 
 
 # ---- host conversions -------------------------------------------------------
@@ -126,13 +129,19 @@ def _limb_array(x: int, n_limbs: int) -> np.ndarray:
 class LimbField:
     """Branch-free batched arithmetic mod `modulus` on 32-bit words.
 
+    `mul_impl` picks the multiply: "cios" (K1) or "sos" (K6).
     `kernels=False` gives the plain twin of a field: the same arithmetic
     with every multiply on the plain path, whatever the device. The kernel
     modules compare against it on the card.
     """
 
-    def __init__(self, modulus: int, kernels: bool = True):
+    def __init__(self, modulus: int, kernels: bool = True,
+                 mul_impl: str = "cios"):
+        if mul_impl not in MUL_IMPLS:
+            raise ValueError(f"mul_impl must be one of {MUL_IMPLS}, got "
+                             f"{mul_impl!r}")
         self.modulus = modulus
+        self.mul_impl = mul_impl
         self.n_words = -(-modulus.bit_length() // WORD_BITS)
         self.lead = (self.n_words,)  # axes in front of the batch
         self.n_limbs = 2 * self.n_words
@@ -152,7 +161,7 @@ class LimbField:
     def plain(self) -> "LimbField":
         if not self.kernels:
             return self
-        return LimbField(self.modulus, kernels=False)
+        return LimbField(self.modulus, kernels=False, mul_impl=self.mul_impl)
 
     # ---- constants -----------------------------------------------------------
     def _const(self, name: str, device) -> torch.Tensor:
@@ -238,8 +247,9 @@ class LimbField:
 
     # ---- Montgomery multiply -----------------------------------------------------
     def mul(self, a, b):
-        """Montgomery product a*b*R^-1 mod p (fields/cuda_mont.py)."""
-        from . import cuda_mont
+        """Montgomery product a*b*R^-1 mod p: K1 (fields/cuda_mont.py) or K6
+        (fields/sos.py), by `mul_impl`."""
+        from . import cuda_mont, sos
 
         W = self.n_words
         if a.shape != b.shape:  # e.g. (W, 1) constants against (W, B)
@@ -249,10 +259,11 @@ class LimbField:
         batch = a.shape[1:]
         a2 = a.reshape(W, -1).contiguous()
         b2 = b.reshape(W, -1).contiguous()
-        if self.kernels:
-            r = cuda_mont.mont_mul(a2, b2, self)
+        if self.mul_impl == "sos":
+            fn = sos.sos_mul if self.kernels else sos.sos_mul_plain
         else:
-            r = cuda_mont.mont_mul_plain(a2, b2, self)
+            fn = cuda_mont.mont_mul if self.kernels else cuda_mont.mont_mul_plain
+        r = fn(a2, b2, self)
         return r.reshape((W,) + tuple(batch))
 
     def sqr(self, a):
@@ -318,3 +329,9 @@ class LimbField:
 
 FP = LimbField(P)
 FR = LimbField(R_ORDER)
+
+
+@functools.lru_cache(maxsize=None)
+def fp_for(mul_impl: str = "cios") -> LimbField:
+    """The base field whose multiply is `mul_impl` (FP for "cios")."""
+    return FP if mul_impl == "cios" else LimbField(P, mul_impl=mul_impl)

@@ -10,9 +10,10 @@ import every module of the port on a machine without nvcc or a card.
 Each kernel entry point is a `Kernel`: calling it launches the kernel on
 PyTorch's current stream, raises if the launch failed, and adds one to its
 `launches` count — the count a run reads to show that it went through the
-kernel. The table of them is here, in one place: K1 (`MONT_MUL`) and each
-curve's K2-K5 (`CURVE_KERNELS`), with the name a run reports each under,
-its C symbol and its source.
+kernel. The table of them is here, in one place: K1 (`MONT_MUL`), each
+curve's K2-K5 (`CURVE_KERNELS`), K6's stages (`SOS_MUL`), the measurement
+drivers' K7 (`MADD_CHAIN`, by dtype) and K8 (`GATHER_SMEM`), with the name
+a run reports each under, its C symbol and its source.
 """
 
 from __future__ import annotations
@@ -93,16 +94,27 @@ def build() -> Path:
     return so
 
 
+# builtin types as template arguments (Itanium mangling)
+_BUILTINS = {"j": "uint32_t", "i": "int", "f": "float"}
+
+
 def _entry_name(symbol: str) -> str:
     """The unqualified name of a mangled kernel symbol: the last
-    length-prefixed part of its (nested) name, before any template
-    arguments."""
+    length-prefixed part of its (nested) name, with its template arguments
+    when they are all integers or builtin types (K6's stage, K7's dtype):
+    "sos_mul_kernel<3>", "madd_chain_kernel<float>"; class arguments (the
+    coordinate field of K2-K5, whose curves have sources of their own) are
+    left out."""
     i, name = (3 if symbol.startswith("_ZN") else 2), symbol
     while i < len(symbol) and symbol[i].isdigit():
         j = i
         while symbol[j].isdigit():
             j += 1
         name, i = symbol[j: j + int(symbol[i:j])], j + int(symbol[i:j])
+    m = re.match(r"I((?:Li-?\d+E|[jif])+)E", symbol[i:])
+    if m:
+        args = re.findall(r"Li(-?\d+)E|([jif])", m.group(1))
+        name += "<" + ", ".join(v or _BUILTINS[t] for v, t in args) + ">"
     return name
 
 
@@ -188,8 +200,26 @@ CURVE_KERNELS = {
             for op, (sym, src, args) in _CURVE_OPS.items()}
     for curve, tag in _CURVE_TAGS.items()
 }
-ALL_KERNELS = [MONT_MUL] + [k for ks in CURVE_KERNELS.values()
-                            for k in ks.values()]
+# K6, the SOS multiply, by stage (fields/sos.py STAGES): "full" is the
+# Montgomery product, the others drivers/mxu_experiment.py's partial bodies
+SOS_MUL = {stage: Kernel("sos_mul" if stage == "full" else f"sos_mul_{stage}",
+                         "sos_mul", "msm_sos_mul" if stage == "full"
+                         else f"msm_sos_mul_{stage}", "sos_mul.cu",
+                         [_P] * 4 + [_I64])
+           for stage in ("prod", "bytes", "mm1", "full")}
+# K7, the chained multiply-add probe, by dtype
+MADD_CHAIN = {dtype: Kernel(f"madd_chain_{dtype}", "madd_chain",
+                            f"msm_madd_chain_{tag}", "madd_chain.cu",
+                            [_P] * 3 + [_I64, _I64])
+              for dtype, tag in (("uint32", "u32"), ("int32", "i32"),
+                                 ("float32", "f32"))}
+# K8, the gather from a table held in the shared memory of a 2-CTA cluster
+GATHER_SMEM = Kernel("gather_smem", "gather_smem", "msm_gather_smem",
+                     "gather_smem.cu", [_P] * 3 + [_I64, _I64])
+ALL_KERNELS = ([MONT_MUL] + [k for ks in CURVE_KERNELS.values()
+                             for k in ks.values()]
+               + list(SOS_MUL.values()) + list(MADD_CHAIN.values())
+               + [GATHER_SMEM])
 
 
 def load():

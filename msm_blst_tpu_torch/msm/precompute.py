@@ -8,6 +8,11 @@ the plan (port of msm_blst_tpu/msm/precompute.py:39-168, 425-488).
 
 Only the reference ("i") row order is ported; the streamed big-n builders
 (the "j" layout) wait for a later slice.
+
+`mul_impl` ("cios" or "sos") picks the kernel of every unfused field
+product — the batched to-affine's inversions above all: the builders run on
+the curve instance over that field (curves.for_mul_impl), and the plan
+carries it, so the queries on the plan use it too.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 from .. import refimpl as ref
 from ..constants import R_ORDER
 from ..device import resolve
+from ..curves.curve import for_mul_impl
 from ..curves.ops import AffinePoint, CurveOps, XyzzPoint
 from . import params as P
 from .engine import MsmPlan, gap_groups
@@ -44,10 +50,12 @@ def _fixed_base_table_host(curve_name: str):
     return table
 
 
-def fixed_base_mult(curve: CurveOps, scalars_ints, device=None) -> AffinePoint:
+def fixed_base_mult(curve: CurveOps, scalars_ints, device=None,
+                    mul_impl: str = "cios") -> AffinePoint:
     """[e_0..e_{n-1}] ints -> affine batch of e_i * G (windowed fixed base),
-    on `device` (default: the card)."""
+    on `device` (default: the card), field products on `mul_impl`."""
     device = resolve(device)
+    curve = for_mul_impl(mul_impl)[curve.name]
     host_table = _fixed_base_table_host(curve.name)
     windows = len(host_table)
     rows = [curve.affine_from_ints(row, device=device) for row in host_table]
@@ -64,11 +72,12 @@ def fixed_base_mult(curve: CurveOps, scalars_ints, device=None) -> AffinePoint:
     return curve.xyzz_to_affine(acc)
 
 
-def fixed_point_list(curve: CurveOps, n: int, device=None) -> AffinePoint:
+def fixed_point_list(curve: CurveOps, n: int, device=None,
+                     mul_impl: str = "cios") -> AffinePoint:
     """P_i = 2^(i+1) * G, i = 0..n-1 — the reference's fixed points, on
-    `device` (default: the card)."""
+    `device` (default: the card), field products on `mul_impl`."""
     es = [pow(2, i + 1, R_ORDER) for i in range(n)]
-    return fixed_base_mult(curve, es, device=device)
+    return fixed_base_mult(curve, es, device=device, mul_impl=mul_impl)
 
 
 def _doubling_chain_tables(curve: CurveOps, points: AffinePoint, c: int,
@@ -127,9 +136,11 @@ def build_bgmw_table(curve: CurveOps, points: AffinePoint,
 
 def build_plan(curve: CurveOps, points: AffinePoint, cfg: P.MsmConfig,
                ches: bool = True, bgmw: bool = True, stock: bool = True,
-               streamed: bool = False, device=None) -> MsmPlan:
+               streamed: bool = False, device=None,
+               mul_impl: str = "cios") -> MsmPlan:
     """The tables of the requested algorithms, as PackedRows32 rows in the
-    "i" layout, on `device` (default: the points' device).
+    "i" layout, on `device` (default: the points' device). The plan's curve
+    is `curve` over the field whose products run on `mul_impl`.
 
     ches: the 3nh table with the digit table and gap constants. bgmw: the nh
     table, or none when CHES and BGMW share the radix and window count: the
@@ -141,6 +152,7 @@ def build_plan(curve: CurveOps, points: AffinePoint, cfg: P.MsmConfig,
         raise NotImplementedError("the streamed big-n table builders are not "
                                   "ported yet")
     device = points.X.device if device is None else torch.device(device)
+    curve = for_mul_impl(mul_impl)[curve.name]
     points = AffinePoint(*(x.to(device) for x in points))
     plan = MsmPlan(curve=curve, cfg=cfg, points=points)
     if ches and bgmw and cfg.c == cfg.c_bgmw and cfg.h == cfg.h_bgmw:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card, G1 and G2 instances: each against its
 plain version, and the CHES, host-recode CHES, BGMW95 and stock queries
-against the oracle.
+against the oracle; K6 (the SOS multiply) at every stage and the CHES
+query on it, and the drivers' K7 and K8.
 Every test carries the `gpu` marker and takes the `dev` fixture, which
 skips it without a CUDA device. On a machine with one:
 
@@ -203,3 +204,68 @@ def test_msm_ches_device_on_the_card(dev, name):
     total = sum(s * pow(2, i + 1, R_ORDER) for i, s in enumerate(ints)) % R_ORDER
     got = curve.affine_to_ints(curve.jac_to_affine(jac))[0]
     assert got == _oracle(name, total)
+
+
+def _random_fp(n, seed, dev):
+    from msm_blst_tpu_torch.fields import FP
+
+    rng = np.random.default_rng(seed)
+    xs = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(n)]
+    xs[:3] = [0, 1, P - 1]
+    return FP.from_ints(xs, device=dev)
+
+
+@pytest.mark.parametrize("stage", ["prod", "bytes", "mm1", "full"])
+def test_sos_kernel_matches_plain(dev, stage):
+    """K6 at each stage, on a batch that is not a multiple of a warp (the
+    tail lanes stay in the warp and store nothing)."""
+    from msm_blst_tpu_torch.fields import FP, cuda_mont, sos
+
+    a = _random_fp(1000, 4, dev)
+    b = _random_fp(1000, 5, dev).flip(1).contiguous()
+    got = sos.sos_stage(a, b, FP, stage)
+    assert torch.equal(got, sos.sos_stage_plain(a, b, FP, stage))
+    if stage == "full":
+        assert torch.equal(got, cuda_mont.mont_mul(a, b, FP))
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "int32", "float32"])
+def test_madd_chain_kernel_matches_plain(dev, dtype):
+    from msm_blst_tpu_torch.drivers import microbench
+
+    a, b = microbench.madd_chain_inputs(dtype, (64, 96), dev)
+    got = microbench.madd_chain(a, b, 8, dtype)
+    assert torch.equal(got, microbench.madd_chain_plain(a, b, 8, dtype))
+
+
+def test_gather_smem_kernel_matches_take(dev):
+    from msm_blst_tpu_torch.drivers import gather_bench
+
+    d = gather_bench.inputs(65537, 1 << 14, dev)
+    got = gather_bench.gather_smem(d["table"], d["idx"])
+    assert torch.equal(got, torch.take(d["table"], d["idx64"]))
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_msm_ches_device_sos_on_the_card(dev, name):
+    """The CHES query with every unfused product on K6, the plan built
+    under it too, against the oracle; K1 never launches."""
+    from msm_blst_tpu_torch import kernels
+    from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
+                                        msm_ches_device, params, recode)
+
+    n = 64
+    kernels.MONT_MUL.launches = kernels.SOS_MUL["full"].launches = 0
+    plan = build_plan(_curve(name),
+                      fixed_point_list(_curve(name), n, device=dev,
+                                       mul_impl="sos"),
+                      params.make_config(6, c=8, h=32), mul_impl="sos")
+    ints = recode.scalars_to_ints(recode.random_scalars(n, seed=3))
+    ints[0], ints[1] = 0, R_ORDER - 1
+    jac = msm_ches_device(plan, recode.to_device(
+        recode.scalars_from_ints(ints), dev))
+    total = sum(s * pow(2, i + 1, R_ORDER) for i, s in enumerate(ints)) % R_ORDER
+    got = plan.curve.affine_to_ints(plan.curve.jac_to_affine(jac))[0]
+    assert got == _oracle(name, total)
+    assert kernels.MONT_MUL.launches == 0
+    assert kernels.SOS_MUL["full"].launches > 0

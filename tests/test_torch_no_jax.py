@@ -1,7 +1,8 @@
 """The port stands apart from JAX and from the JAX package, its entry
-points refuse to run without a card unless the caller asks for the CPU, and
-its chip smoke refuses to run without a card or without the repository.
-Its kernel table binds C entry points that its CUDA sources define.
+points (the measurement drivers among them) refuse to run without a card
+unless the caller asks for the CPU, and its chip smoke refuses to run
+without a card or without the repository. Its kernel table binds C entry
+points that its CUDA sources define.
 
 The import checks run in subprocesses, so this test process's own imports
 (pytest's conftest imports jax) do not count.
@@ -37,7 +38,7 @@ def test_port_modules_never_import_jax():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 23  # every module of the package
+    assert int(r.stdout.strip()) >= 29  # every module of the package
 
 
 def _refuses_without_a_card(curve: str):
@@ -57,6 +58,30 @@ def test_entry_points_default_to_the_card():
 
 def test_g2_entry_points_default_to_the_card():
     _refuses_without_a_card("G2")
+
+
+@pytest.mark.parametrize("name", ["microbench", "mxu_experiment",
+                                  "gather_bench"])
+def test_drivers_default_to_the_card(name):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-m",
+                        f"msm_blst_tpu_torch.drivers.{name}"], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "RuntimeError" in r.stderr and "no CUDA device" in r.stderr, r.stderr
+
+
+def test_new_modules_are_walked():
+    """The modules of this slice are among those the import check walks."""
+    import pkgutil
+
+    import msm_blst_tpu_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                     pkg.__name__ + ".")}
+    for mod in ("fields.sos", "utils.profiling", "drivers.microbench",
+                "drivers.mxu_experiment", "drivers.gather_bench"):
+        assert f"msm_blst_tpu_torch.{mod}" in names
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -90,3 +115,21 @@ def test_kernel_table_matches_its_source(name):
     want = [ctypes.c_void_p if "*" in a else ctype[a.rsplit(" ", 1)[0]]
             for a in params[:-1]]
     assert k.argtypes == want
+
+
+@pytest.mark.parametrize("symbol, name", [
+    ("_ZN12_GLOBAL__N_111dadd_kernelIN3msm2FpEEEvPT_", "dadd_kernel"),
+    ("_ZN12_GLOBAL__N_114sos_mul_kernelILi3EEEvPKjS2_PjS2_l",
+     "sos_mul_kernel<3>"),
+    ("_ZN12_GLOBAL__N_117madd_chain_kernelIjEEvPKT_S3_PS1_ll",
+     "madd_chain_kernel<uint32_t>"),
+    ("_ZN12_GLOBAL__N_117madd_chain_kernelIfEEvPKT_S3_PS1_ll",
+     "madd_chain_kernel<float>"),
+    ("_ZN12_GLOBAL__N_118gather_smem_kernelEPKiS1_Pilll",
+     "gather_smem_kernel"),
+])
+def test_ptxas_entry_names(symbol, name):
+    """ptxas_summary keys each instance of a kernel template by its integer
+    or builtin-type arguments (K6's stages, K7's dtypes), so none hides
+    another; class arguments are left out (g++ mangles as nvcc does)."""
+    assert kernels._entry_name(symbol) == name
