@@ -18,7 +18,9 @@ Phases, each reported on its own lines:
      the shapes of the n=2^16 paths and the drivers, exact equality, with
      CUDA-event times of both, of the library call where one computes the
      same function, and the least time the card could take for the same
-     work (bytes, integer multiply-adds, tensor-core MACs or FMAs);
+     work (bytes, integer multiply-adds, tensor-core MACs or FMAs); K9 (the
+     segmented fold) on the CHES integration's six gap groups, with the
+     depth of its longest chain of adds beside a one-lane K2 dadd's time;
   5. main path: the G1 CHES n=2^16 query (params.CONFIGS[16]) — fixed
      points, the plan, one warm-up and five timed scalar sets — with every
      result checked against the pure-Python oracle and every kernel of the
@@ -29,7 +31,8 @@ Phases, each reported on its own lines:
      and stock with both bucket strategies (prefix, segmented), each query
      checked against the oracle; the plan build and each path count their
      launches on their own: every kernel of the path (K5's two variants on
-     the segmented ones) launched, none of the other strategy's;
+     the segmented ones, K9 on all) launched, none of the other strategy's;
+     each query path prints its K2 dadd and K9 launches a query;
   7. g2: phases 5 and 6 over G2 at the same n and config (the SOS query
      on two scalar sets), each path launching the G2 kernels (and K1 or
      K6, which Fp2's products run through) and none of the G1 point and
@@ -208,6 +211,7 @@ def phase_kernels(dev):
             raise AssertionError(f"{name}: kernel and plain version differ")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          **b, "library_ms": library_ms}
+        return results[name]
 
     # K1 and K6 on 2^20 elements
     a = _random_fp(1 << 20, 11, dev)
@@ -352,8 +356,91 @@ def curve_kernels(dev, case, record):
     record(case.name("xyzz_scan_level"), k4, k4_plain, 5, 1,
            c4 * n4 * 8 * E + 4 * E * n4, case.mont(DADD) * (c4 - 1) * n4)
 
+    # K9 on the integration's gap groups, over K3's local prefixes
+    fold_kernel(dev, case, record, local[:109243])
+
     # K5 at BGMW's first two levels: (60, 16384) and (32, 1024)
     phase_seg_kernels(dev, case, record, rows, rng)
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device milliseconds a call of `fn` takes, back to back, when the
+    host is not the limit: a spin kernel holds the stream for 0.2 s while
+    the host enqueues the `reps` calls, so the events time the card alone
+    (a one-lane launch takes the host longer to issue than the card to
+    run)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(top_sm_mhz() * 1e6 * 0.2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fold_kernel(dev, case, record, rows):
+    """K9 against its plain version at the CHES integration's shape: the
+    six gap groups of CONFIGS[16] (engine.gap_groups) indexed into a
+    109,243-point xyzz batch (`rows`: (M, 4, W) words of real sums; every
+    997th lane from lane 5 set to infinity), and three more segments: P
+    and P (the add doubles), P and -P (it cancels), and an empty one.
+    Beside the bound, the depth: the adds on the longest thread chain,
+    summed over the passes, times the time of a one-lane K2 dadd launch."""
+    from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
+    from msm_blst_tpu_torch.msm import params, scan
+    from msm_blst_tpu_torch.msm.engine import gap_groups
+
+    curve, E = case.curve, case.elem_bytes
+    M = rows.shape[0]
+    pts = XyzzPoint(*(curve.from_words(rows[:, i].T) for i in range(4)))
+    inf_lanes = torch.arange(5, M, 997, device=dev)
+    for c in pts:
+        c[..., inf_lanes] = 0
+        c[..., 1] = c[..., 0]  # P, P at 0, 1
+        c[..., 3] = c[..., 2]
+    pts.Y[..., 3:4] = curve.F.plain.neg(pts.Y[..., 2:3])  # P, -P at 2, 3
+    groups = gap_groups(np.diff(params.CONFIGS[16].bucket_set()), dev)
+    last = groups.offsets[-1]
+    offsets = groups.offsets + (last + 2, last + 4, last + 4)
+    index = torch.cat([groups.members,
+                       torch.arange(4, dtype=torch.int64, device=dev)])
+    lengths = np.diff(offsets)
+
+    def k9():
+        return tuple(scan.fold_segments(curve, pts, offsets, index=index))
+
+    def k9_plain():
+        return tuple(scan.fold_segments_plain(curve, pts, offsets, index=index))
+
+    got = k9()
+    g = len(groups.offsets) - 1  # the P, P segment; then P, -P and empty
+    P = XyzzPoint(*(c[..., :1] for c in pts))
+    if not all(torch.equal(x[..., g:g + 1], d) for x, d in
+               zip(got, cuda_point.xyzz_double_plain(curve, P))):
+        raise AssertionError("K9: P + P is not 2P")
+    if any(bool(x[..., g + 1:].any()) for x in got):
+        raise AssertionError("K9: P - P or the empty segment is not infinity")
+    r = record(case.name("xyzz_fold"), k9, k9_plain, 20, 1,
+               int(lengths.sum()) * (4 * E + 8) + 4 * E * len(lengths),
+               case.mont(DADD) * int(np.maximum(lengths - 1, 0).sum()))
+    one = XyzzPoint(*(c[..., :1].contiguous() for c in pts))
+    two = XyzzPoint(*(c[..., 4:5].contiguous() for c in pts))
+    r["dadd_one_lane_ms"] = queued_ms(
+        lambda: cuda_point.xyzz_dadd(curve, one, two), 50)
+    sched = scan.fold_schedule(offsets)
+    r["passes"] = [(k, len(t)) for k, t in sched]
+    # thread 0's adds: one fewer than its elements, then every tree level
+    r["depth_adds"] = sum(
+        int(-(-(t[:, 1] - t[:, 0]).max() // scan.FOLD_THREADS)) - 1
+        + scan.FOLD_THREADS.bit_length() - 1 for _, t in sched)
+    r["depth_ms"] = r["depth_adds"] * r["dadd_one_lane_ms"]
+    print(f"kernel {case.name('xyzz_fold')}: passes (k, tiles) {r['passes']},"
+          f" depth {r['depth_adds']} adds x one-lane dadd "
+          f"{r['dadd_one_lane_ms']:.4f} ms = {r['depth_ms']:.4f} ms")
 
 
 def seg_work(keys, n_buckets: int, in_bytes: int, mont_add: int,
@@ -479,10 +566,11 @@ def read_counts(path: str, names, unused=()) -> dict:
     return launches
 
 
-# The kernels each query launches: the integration's folds, doublings and
-# suffix scan and the conversion to Jacobian, then those of its bucket
-# strategy. By op, for either curve; K1 (mont_mul) serves both.
-QUERY_KERNELS = ["point_dadd", "point_double", "xyzz_scan_level"]
+# The kernels each query launches: the integration's adds, doublings,
+# suffix scan and folds (K9) and the conversion to Jacobian, then those of
+# its bucket strategy. By op, for either curve; K1 (mont_mul) serves both.
+QUERY_KERNELS = ["point_dadd", "point_double", "xyzz_scan_level",
+                 "xyzz_fold"]
 STRATEGY_KERNELS = {"prefix": ["affine_prefix_level"],
                     "segmented": ["seg_level_affine", "seg_level_xyzz"]}
 
@@ -506,6 +594,15 @@ def path_kernels(case, ops, impl=None, mul_impl="cios"):
         unused += [case.name(op) for s, ops_s in STRATEGY_KERNELS.items()
                    if s != impl for op in ops_s]
     return [mul] + [case.name(op) for op in ops], unused
+
+
+def per_query(path: str, case, launches: dict, queries: int,
+              before=None) -> None:
+    """The path's K2 dadd and K9 launches a query (less those counted in
+    `before`, a snapshot taken before the queries)."""
+    for name in (case.name("point_dadd"), case.name("xyzz_fold")):
+        n = launches[name] - (before or {}).get(name, 0)
+        print(f"{path}: {name} launches a query: {n / queries:g}")
 
 
 def oracle_check(case, n: int):
@@ -556,6 +653,7 @@ def phase_main_path(dev, case, mul_impl="cios", seeds=SEEDS):
     print(f"{label}: n=2^{N_LOG}, c={cfg.c}, h={cfg.h}, |B|={cfg.b_size}, "
           f"table {tuple(plan.table3nh.XY.shape)}; fixed points + plan "
           f"{build_s:.3f} s")
+    built = {name: k.launches for name, k in counters().items()}
     check(WARM_SEED, msm_ches_device(plan, scalars[WARM_SEED]), plan.curve)
     times = []
     for s in seeds:
@@ -568,9 +666,11 @@ def phase_main_path(dev, case, mul_impl="cios", seeds=SEEDS):
     print(f"{label}: {len(seeds)} queries equal to the oracle; query mean "
           f"{1e3 * sum(times) / len(times):.3f} ms, min {1e3 * min(times):.3f}"
           f" ms")
-    return read_counts(label, *path_kernels(
+    launches = read_counts(label, *path_kernels(
         case, ["point_dadd_affine"] + QUERY_KERNELS + ["affine_prefix_level"],
         "prefix", mul_impl))
+    per_query(label, case, launches, 1 + len(seeds), built)
+    return launches
 
 
 def phase_algorithms(dev, case, seeds):
@@ -631,6 +731,8 @@ def phase_algorithms(dev, case, seeds):
         paths[f"{curve.name}_{name}"] = read_counts(
             f"{label} {name}", *path_kernels(
                 case, QUERY_KERNELS + STRATEGY_KERNELS[impl], impl))
+        per_query(f"{label} {name}", case, paths[f"{curve.name}_{name}"],
+                  1 + len(qseeds))
     return paths
 
 
@@ -667,12 +769,14 @@ def phase_drivers(dev):
 
 
 # The TPU kernel each kernel replaces, by name or by op (the point formulas
-# share one builder, the segmented levels another, K6's partial stages the
+# share one builder, whose dadd K9 replaces where utils/scans.py fold calls
+# it; the segmented levels share another, K6's partial stages the
 # experiment's `make`)
 _PALLAS = {
     "mont_mul": "msm_blst_tpu/fields/pallas_mont.py:281",
     "sos_mul": "msm_blst_tpu/fields/pallas_mont.py:309",
     "point": "msm_blst_tpu/curves/pallas_point.py:49",
+    "xyzz_fold": "msm_blst_tpu/curves/pallas_point.py:49",
     "affine_prefix_level": "msm_blst_tpu/msm/pallas_scan.py:463",
     "xyzz_scan_level": "msm_blst_tpu/msm/pallas_scan.py:367",
     "seg": "msm_blst_tpu/msm/pallas_scan.py:93",

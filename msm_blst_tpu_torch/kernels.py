@@ -11,9 +11,9 @@ Each kernel entry point is a `Kernel`: calling it launches the kernel on
 PyTorch's current stream, raises if the launch failed, and adds one to its
 `launches` count — the count a run reads to show that it went through the
 kernel. The table of them is here, in one place: K1 (`MONT_MUL`), each
-curve's K2-K5 (`CURVE_KERNELS`), K6's stages (`SOS_MUL`), the measurement
-drivers' K7 (`MADD_CHAIN`, by dtype) and K8 (`GATHER_SMEM`), with the name
-a run reports each under, its C symbol and its source.
+curve's K2-K5 and K9 (`CURVE_KERNELS`), K6's stages (`SOS_MUL`), the
+measurement drivers' K7 (`MADD_CHAIN`, by dtype) and K8 (`GATHER_SMEM`),
+with the name a run reports each under, its C symbol and its source.
 """
 
 from __future__ import annotations
@@ -175,8 +175,8 @@ class Kernel:
 MONT_MUL = Kernel("mont_mul", "mont_mul", "msm_mont_mul", "mont_mul.cu",
                   [_P, _P, _P, _I64])
 
-# K2-K5 of a curve, by op: (C symbol without "msm_" and the curve's prefix,
-# source stem, argument types). Every curve's instances take the same
+# K2-K5 and K9 of a curve, by op: (C symbol without "msm_" and the curve's
+# prefix, source stem, argument types). Every curve's instances take the same
 # arguments; only the coordinate field differs.
 _CURVE_OPS = {
     "point_dadd_affine": ("xyzz_dadd_affine", "point_ops", [_P] * 11 + [_I64]),
@@ -189,8 +189,9 @@ _CURVE_OPS = {
                          [_P] * 8 + [_I64] + [_P] * 10 + [_I32, _I64]),
     "seg_level_xyzz": ("seg_level_xyzz", "seg",
                        [_P] * 9 + [_I64] + [_P] * 10 + [_I32, _I64]),
+    "xyzz_fold": ("xyzz_fold", "fold", [_P] * 10 + [_I64, _I64, _I32]),
 }
-# each curve's tag: G1's kernels are csrc/{point_ops,scan,seg}.cu, msm_*;
+# each curve's tag: G1's kernels are csrc/{point_ops,scan,seg,fold}.cu, msm_*;
 # G2's csrc/*_g2.cu, msm_g2_*, reported as g2_*
 _CURVE_TAGS = {"G1": "", "G2": "g2"}
 CURVE_KERNELS = {

@@ -20,7 +20,7 @@ ranged driver are not ported yet.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -30,8 +30,8 @@ from ..curves.ops import (AffinePoint, CurveOps, JacPoint, PackedRows32,
 from . import params as P
 from . import recode
 from .prefix_pipeline import bucket_sums_prefix
-from .scan import (fold_xyzz, scan_fold_axis, segmented_reduce_affine,
-                   suffix_scan_xyzz)
+from .scan import (fold_segments, fold_xyzz, scan_fold_axis,
+                   segmented_reduce_affine, suffix_scan_xyzz)
 
 BUCKET_IMPLS = ("prefix", "segmented")
 
@@ -92,30 +92,43 @@ def integrate_weighted_consecutive(curve: CurveOps,
     return curve.xyzz_dadd(hi, lo)
 
 
-def gap_groups(gaps_np: np.ndarray, device=None) -> tuple:
-    """Host constants of integrate_gapped, moved once to the device: for
-    g = 1..d_max the suffix positions i with gap_i == g (None if empty)."""
+class GapGroups(NamedTuple):
+    """Host constants of integrate_gapped, on the device: the positions i
+    of the suffix sums with gap_i == g, group after group for g = 1..d_max
+    (`members`, int64), and group g's at [offsets[g-1], offsets[g])
+    (`offsets`, host ints)."""
+
+    members: torch.Tensor
+    offsets: tuple
+
+
+def gap_groups(gaps_np: np.ndarray, device=None) -> GapGroups:
+    """integrate_gapped's constants for the bucket gaps `gaps_np`, moved
+    once to `device`."""
     d_max = int(gaps_np.max()) if len(gaps_np) else 1
-    groups = []
-    for g in range(1, d_max + 1):
-        members = np.nonzero(gaps_np == g)[0]
-        groups.append(torch.as_tensor(members.astype(np.int64), device=device)
-                      if len(members) else None)
-    return tuple(groups)
+    members = [np.nonzero(gaps_np == g)[0] for g in range(1, d_max + 1)]
+    offsets = tuple(int(o) for o in np.cumsum([0] + [len(m) for m in members]))
+    return GapGroups(
+        torch.as_tensor(np.concatenate(members).astype(np.int64), device=device),
+        offsets)
 
 
-def integrate_gapped(curve: CurveOps, buckets: XyzzPoint, groups) -> XyzzPoint:
+def integrate_gapped(curve: CurveOps, buckets: XyzzPoint,
+                     groups: GapGroups) -> XyzzPoint:
     """Sum bucket_value[i] * buckets[i] for a non-consecutive ascending
     bucket set with gaps <= d_max (reference multi_scalar.c:301-321, the
     d-CHES trick): Sum_i B[i]*bucket[i] = Sum_{i>=1} gap_{i-1} * S_i with
     S_i the suffix sums over buckets[1:]. `groups` = gap_groups(gaps): one
-    exact-size fold per gap value, combined by Horner over the gap bits."""
+    fold of all d_max gap groups (K9), combined by Horner over the gap
+    bits."""
     tail = XyzzPoint(*(c[..., 1:] for c in buckets))
     suffix = suffix_scan_xyzz(curve, tail)
-    sums = [None if members is None else fold_xyzz(curve, curve.take(suffix, members))
-            for members in groups]
+    folded = fold_segments(curve, suffix, groups.offsets, index=groups.members)
+    o = groups.offsets
+    sums = [XyzzPoint(*(c[..., g:g + 1] for c in folded))
+            if o[g + 1] > o[g] else None for g in range(len(o) - 1)]
     acc: Optional[XyzzPoint] = None
-    d_max = len(groups)
+    d_max = len(sums)
     for bit in range(d_max.bit_length() - 1, -1, -1):
         sel = [s for g, s in enumerate(sums, start=1)
                if ((g >> bit) & 1) and s is not None]
@@ -143,7 +156,7 @@ class MsmPlan:
     table3nh: Optional[PackedRows32] = None
     packed_table: Optional[torch.Tensor] = None  # int32[q+1, 2] pairs layout
     bucket_gaps: Optional[np.ndarray] = None     # host int32[B_SIZE-1]
-    gap_groups: Optional[tuple] = None           # gap_groups(bucket_gaps)
+    gap_groups: Optional[GapGroups] = None       # gap_groups(bucket_gaps)
     noindexhash: bool = False
     # BGMW95: slot i*h'+j (reference main_p1.cpp:94-122), PackedRows32
     table_nh: Optional[PackedRows32] = None

@@ -1,9 +1,18 @@
 """EC folds, scans and the segmented bucket reduction over xyzz batches
-(port of msm_blst_tpu/msm/scan.py).
+(port of msm_blst_tpu/msm/scan.py), and K9, the segmented xyzz fold
+(csrc/fold.cu for G1, csrc/fold_g2.cu for G2), with its plain twin.
 
 The folds and suffix scans replace the reference's serial bucket
 integration loops (multi_scalar.c:281-344); the segmented reduction
 (`bucket_impl="segmented"`) replaces its serial scatter loop (:421-463).
+
+Every fold goes through `fold_segments`: the sums of many segments of one
+stream at once. K9 replaces msm_blst_tpu/curves/pallas_point.py
+_kernel(curve, "dadd") as msm_blst_tpu/utils/scans.py fold calls it, one
+formula launch a column. It sums a tile of FOLD_THREADS * k elements a
+block, a serial stage then a tree, pass after pass (`fold_tiles` picks k
+and cuts the tiles on the host). The terms associate otherwise than in the
+JAX fold: the sums are the same points, not the same xyzz words.
 
 Segmented-reduction correctness (as the JAX module argues it): a key-sorted
 stream is cut into contiguous chunks. In a chunk, runs strictly inside it
@@ -17,17 +26,186 @@ is stored by exactly one level, so the stores never collide.
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ..curves.ops import XyzzPoint
+from ..kernels import CURVE_KERNELS, check_cuda, on_cpu, ptr
 from ..utils import scans
 from ..utils.scans import DEFAULT_CHUNK
 from . import cuda_scan
 
+# K9's block (csrc/fold.cuh THREADS), and the blocks that fill the H100 in
+# one wave: 132 SMs, two blocks of 128 threads an SM at 255 registers a
+# thread (K2's dadd).
+FOLD_THREADS = 128
+FOLD_WAVE = 132 * 2
 
-def fold_xyzz(curve, pts: XyzzPoint, chunk: int = DEFAULT_CHUNK) -> XyzzPoint:
-    """Sum all lanes -> batch of 1 (zero padding = infinity = identity)."""
-    return scans.fold(curve.xyzz_dadd, pts, chunk)
+
+class FoldPass(NamedTuple):
+    """One K9 launch: k elements a thread in the serial stage, and the
+    tiles, int64 (n_tiles, 2): [start, end) of the pass's input stream.
+    Tile t's partial is element t of the next pass's input."""
+
+    k: int
+    tiles: torch.Tensor
+
+
+def _tiles_per_segment(lengths, k: int):
+    return np.maximum(1, -(-lengths // (FOLD_THREADS * k)))
+
+
+def fold_schedule(offsets) -> list:
+    """The passes of a fold of segments [offsets[g], offsets[g+1]) on the
+    host, as (k, tiles) numpy pairs. A segment takes max(1, ceil(length /
+    (FOLD_THREADS * k))) tiles (an empty one a tile of nothing: infinity),
+    and k is the fewest elements a thread that keep a pass within one
+    FOLD_WAVE of tiles (or one tile a segment, if there are more segments).
+    A segment's partials are the segment in the next pass; passes run until
+    each segment is one partial."""
+    offs = np.asarray(offsets, dtype=np.int64)
+    starts, lengths = offs[:-1], np.diff(offs)
+    passes = []
+    while True:
+        k = max(1, -(-int(lengths.sum()) // (FOLD_WAVE * FOLD_THREADS)))
+        while _tiles_per_segment(lengths, k).sum() > max(FOLD_WAVE, len(lengths)):
+            k += 1
+        span = FOLD_THREADS * k
+        n_t = _tiles_per_segment(lengths, k)
+        first = np.cumsum(n_t) - n_t  # each segment's first tile
+        seg = np.repeat(np.arange(len(n_t)), n_t)
+        lo = starts[seg] + (np.arange(int(n_t.sum())) - first[seg]) * span
+        hi = np.minimum(lo + span, (starts + lengths)[seg])
+        passes.append((k, np.stack([lo, hi], axis=1)))
+        if (n_t == 1).all():
+            return passes
+        starts, lengths = first, n_t
+
+
+@functools.lru_cache(maxsize=64)
+def _fold_tiles(offsets: tuple, device) -> tuple:
+    return tuple(FoldPass(k, torch.as_tensor(t, device=device))
+                 for k, t in fold_schedule(offsets))
+
+
+def fold_tiles(offsets, device=None) -> tuple:
+    """fold_schedule's passes with their tile tables on `device`, made once
+    for each (offsets, device) and kept."""
+    return _fold_tiles(tuple(int(o) for o in offsets), device)
+
+
+def _no_segments(curve, pts: XyzzPoint) -> XyzzPoint:
+    z = pts.X.new_zeros(curve.F.lead + (0,))
+    return XyzzPoint(z, z, z, z)
+
+
+def _segment_elems(src: XyzzPoint, index, pos, valid) -> XyzzPoint:
+    """Elements pos (int64, any shape) of a (*lead, n) stream, read through
+    `index` if given; infinity where not `valid`."""
+    if not bool(valid.any()):
+        z = src.X.new_zeros(src.X.shape[:-1] + pos.shape)
+        return XyzzPoint(z, z, z, z)
+    at = torch.where(valid, pos, 0)
+    if index is not None:
+        at = index[at]
+    at = at.reshape(-1)
+    return XyzzPoint(*(torch.where(valid, c[..., at].reshape(
+        c.shape[:-1] + pos.shape), 0) for c in src))
+
+
+def _dadd_lanes(curve, a: XyzzPoint, b: XyzzPoint) -> XyzzPoint:
+    """The plain dadd of (*lead, *batch) points. Where an operand is
+    infinity the formula's answer is its case analysis alone (b if a is
+    infinity, else a), so only the lanes where both are finite run the
+    formula: the same words, for the cost of the real adds (most lanes of
+    a short segment's tile are infinity)."""
+    lead = curve.F.lead
+    shape = curve.bshape(a.X)
+    a, b = (XyzzPoint(*(c.reshape(lead + (-1,)) for c in p)) for p in (a, b))
+    a_inf, b_inf = curve.xyzz_is_inf(a), curve.xyzz_is_inf(b)
+    out = curve.select(a_inf, b, a)
+    both = (~(a_inf | b_inf)).nonzero()[:, 0]
+    if len(both):
+        added = curve.xyzz_dadd_body(curve.take(a, both), curve.take(b, both),
+                                     F=curve.F.plain)
+        for o, c in zip(out, added):
+            o[..., both] = c
+    return XyzzPoint(*(c.reshape(lead + shape) for c in out))
+
+
+def fold_segments_plain(curve, pts: XyzzPoint, offsets,
+                        index=None) -> XyzzPoint:
+    """Plain K9, batched over every tile of a pass, with the kernel's
+    tiles, k, operand order and passes: thread j of a tile [start, end)
+    starts from element start + j (infinity past end) and adds elements
+    start + j + i * FOLD_THREADS, i = 1..k-1, that lie before end; then for
+    s = FOLD_THREADS/2 .. 1 thread j < s adds thread j + s's sum to its own.
+    On the card it equals K9 word for word."""
+    if len(offsets) == 1:
+        return _no_segments(curve, pts)
+    passes = fold_tiles(offsets, pts.X.device)
+    T = FOLD_THREADS
+    lane = torch.arange(T, device=pts.X.device)
+    src = pts
+    for k, t in passes:
+        lo, hi = t[:, :1], t[:, 1:]
+        acc = None
+        for i in range(k):
+            pos = lo + lane + i * T
+            valid = pos < hi
+            e = _segment_elems(src, index, pos, valid)
+            acc = e if acc is None else curve.select(
+                valid, _dadd_lanes(curve, acc, e), acc)
+        s = T // 2
+        while s >= 1:
+            acc = _dadd_lanes(curve, XyzzPoint(*(c[..., :s] for c in acc)),
+                              XyzzPoint(*(c[..., s:2 * s] for c in acc)))
+            s //= 2
+        src, index = XyzzPoint(*(c[..., 0] for c in acc)), None
+    return src
+
+
+def fold_segments(curve, pts: XyzzPoint, offsets, index=None) -> XyzzPoint:
+    """The sum of each segment g of a 1-D xyzz batch `pts` (*F.lead, M):
+    pts[index[offsets[g]:offsets[g+1]]], or pts[offsets[g]:offsets[g+1]]
+    when `index` (int64) is None. `offsets`: G + 1 ascending host integers.
+    An empty segment sums to infinity. Returns an XyzzPoint (*F.lead, G).
+
+    CUDA tensors go through K9, one launch a pass; CPU tensors take
+    fold_segments_plain."""
+    if on_cpu(*pts):
+        return fold_segments_plain(curve, pts, offsets, index)
+    if len(offsets) == 1:
+        return _no_segments(curve, pts)
+    dev = pts.X.device
+    passes = fold_tiles(offsets, dev)
+    kernel = CURVE_KERNELS[curve.name]["xyzz_fold"]
+    lead, W = curve.F.lead, curve.F.n_words
+    src = [c.contiguous().reshape(W, c.shape[-1]) for c in pts]
+    check_cuda(kernel.symbol, src)
+    for t in ([] if index is None else [index]) + [p.tiles for p in passes]:
+        if t.device != dev or t.dtype != torch.int64 or not t.is_contiguous():
+            raise ValueError(f"{kernel.symbol}: index and tiles must be "
+                             f"contiguous int64 tensors on {dev}")
+    for k, t in passes:
+        n_t = t.shape[0]
+        outs = [torch.empty((W, n_t), dtype=torch.int32, device=dev)
+                for _ in range(4)]
+        if n_t:
+            kernel(*map(ptr, src), None if index is None else ptr(index),
+                   ptr(t), *map(ptr, outs), src[0].shape[1], n_t, k)
+        src, index = outs, None
+    return XyzzPoint(*(c.reshape(lead + (-1,)) for c in src))
+
+
+def fold_xyzz(curve, pts: XyzzPoint) -> XyzzPoint:
+    """Sum along the last axis -> batch of 1."""
+    out = scan_fold_axis(curve, pts, -1)
+    return XyzzPoint(*(c.unsqueeze(-1) for c in out))
 
 
 def suffix_scan_xyzz(curve, pts: XyzzPoint,
@@ -44,12 +222,17 @@ def suffix_scan_xyzz(curve, pts: XyzzPoint,
 
 def scan_fold_axis(curve, pts: XyzzPoint, axis: int) -> XyzzPoint:
     """EC-sum along `axis` (removed from the batch shape); other batch axes
-    are carried in parallel."""
+    are carried in parallel, as equal-length segments of one fold."""
     ndim = pts.X.ndim
     if axis % ndim != ndim - 1:
-        pts = type(pts)(*(c.movedim(axis, -1) for c in pts))
-    out = scans.fold(curve.xyzz_dadd, pts)
-    return type(pts)(*(c[..., 0] for c in out))
+        pts = XyzzPoint(*(c.movedim(axis, -1) for c in pts))
+    lead = curve.F.lead
+    batch, M = tuple(pts.X.shape[len(lead):-1]), pts.X.shape[-1]
+    G = math.prod(batch)
+    flat = XyzzPoint(*(c.contiguous().reshape(lead + (G * M,)) for c in pts))
+    offsets = range(0, G * M + 1, M) if M else [0] * (G + 1)
+    out = fold_segments(curve, flat, offsets)
+    return XyzzPoint(*(c.reshape(lead + batch) for c in out))
 
 
 def segmented_reduce_affine(curve, pts, signs, keys,

@@ -1,4 +1,4 @@
-"""Chunked scan and fold primitives for expensive commutative monoids.
+"""Chunked scan primitives for expensive commutative monoids.
 
 Port of msm_blst_tpu/utils/scans.py with the same chunking, so a scan here
 associates its terms exactly as the JAX one does: reshape the stream into
@@ -61,20 +61,6 @@ def _columns(tree, n: int, c: int):
 
 def _col(tree, j: int):
     return tree_map(lambda x: x[j], tree)
-
-
-def fold(combine, tree, chunk: int = DEFAULT_CHUNK):
-    """Reduce along the last axis -> size-1 batch."""
-    N = _last_dim(tree)
-    while N > 1:
-        c = pick_chunk(N, chunk)
-        cols, n_ch = _columns(tree, N, c)
-        acc = _col(cols, 0)
-        for j in range(1, c):
-            acc = combine(acc, _col(cols, j))
-        tree = acc
-        N = n_ch
-    return tree
 
 
 def prefix_scan(combine, tree, chunk: int = DEFAULT_CHUNK):

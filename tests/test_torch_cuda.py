@@ -269,3 +269,54 @@ def test_msm_ches_device_sos_on_the_card(dev, name):
     assert got == _oracle(name, total)
     assert kernels.MONT_MUL.launches == 0
     assert kernels.SOS_MUL["full"].launches > 0
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_fold_kernel_matches_plain(dev, name):
+    """K9 over 60,005 elements in five segments, two of them empty and one
+    read through an index: k = 2 and three passes (the long segments leave
+    157 and 79 partials, then 2 and 1); equal to the plain twin word for
+    word, with and without the index."""
+    from msm_blst_tpu_torch.curves import XyzzPoint
+    from msm_blst_tpu_torch.msm import scan
+
+    curve = _curve(name)
+    base = curve.xyzz_double(curve.xyzz_from_affine(_points(64, dev, name)))
+    rng = np.random.default_rng(6)
+    pts = XyzzPoint(*(c[..., torch.as_tensor(rng.integers(0, 64, 60005),
+                                             device=dev)] for c in base))
+    offsets = [0, 0, 5, 40000, 40000, 60005]
+    assert [(k, len(t)) for k, t in scan.fold_schedule(offsets)] == \
+        [(2, 239), (1, 6), (1, 5)]
+    index = torch.as_tensor(rng.permutation(60005), device=dev)
+    for idx in (None, index):
+        got = scan.fold_segments(curve, pts, offsets, index=idx)
+        want = scan.fold_segments_plain(curve, pts, offsets, index=idx)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert not bool(got.ZZ[..., 0].any()) and bool(got.ZZ[..., 2].any())
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_integrate_gapped_on_the_card(dev, name):
+    """The CHES integration through K9 on the card equals the CPU twin's
+    point, on a plan's gap groups (c=10, h=26: 218 buckets, every gap)."""
+    from msm_blst_tpu_torch.curves import XyzzPoint
+    from msm_blst_tpu_torch.msm import params
+    from msm_blst_tpu_torch.msm.engine import MsmPlan, integrate_gapped
+    from msm_blst_tpu_torch.msm.precompute import _attach_ches_params
+
+    curve = _curve(name)
+    cfg = params.make_config(6, c=10, h=26)
+    base = curve.xyzz_double(curve.xyzz_from_affine(_points(64, dev, name)))
+    rng = np.random.default_rng(7)
+    buckets = XyzzPoint(*(c[..., torch.as_tensor(
+        rng.integers(0, 64, cfg.b_size), device=dev)] for c in base))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        plan = MsmPlan(curve=curve, cfg=cfg)
+        _attach_ches_params(plan, cfg, d)
+        acc = integrate_gapped(curve, XyzzPoint(*(c.to(d) for c in buckets)),
+                               plan.gap_groups)
+        out[d.type] = curve.affine_to_ints(
+            curve.jac_to_affine(curve.xyzz_to_jac(acc)))
+    assert out["cuda"] == out["cpu"]

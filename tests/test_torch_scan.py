@@ -159,8 +159,7 @@ def test_prefix_and_suffix_scans_match_jax():
     for g, w in zip(same, jpre):
         assert np.array_equal(fp_to_jax(g), np.asarray(w))
     # the last running sum is the fold of the whole stream
-    assert want_pre[-1] == _affine_ints(
-        scans.fold(G1.xyzz_dadd, tp))[0]
+    assert want_pre[-1] == _affine_ints(fold_xyzz(G1, tp))[0]
 
 
 def test_folds_match_jax():
