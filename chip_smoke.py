@@ -19,8 +19,10 @@ Phases, each reported on its own lines:
      CUDA-event times of both, of the library call where one computes the
      same function, and the least time the card could take for the same
      work (bytes, integer multiply-adds, tensor-core MACs or FMAs); K9 (the
-     segmented fold) on the CHES integration's six gap groups, with the
-     depth of its longest chain of adds beside a one-lane K2 dadd's time;
+     segmented fold) on the CHES integration's six gap groups and K4 (the
+     block scan) at the four stream lengths of the query paths (109,243,
+     8,192, 2,048, 64), each with the depth of its longest chain of adds
+     beside a one-lane K2 dadd's time;
   5. main path: the G1 CHES n=2^16 query (params.CONFIGS[16]) — fixed
      points, the plan, one warm-up and five timed scalar sets — with every
      result checked against the pure-Python oracle and every kernel of the
@@ -32,7 +34,7 @@ Phases, each reported on its own lines:
      checked against the oracle; the plan build and each path count their
      launches on their own: every kernel of the path (K5's two variants on
      the segmented ones, K9 on all) launched, none of the other strategy's;
-     each query path prints its K2 dadd and K9 launches a query;
+     each query path prints its K2 dadd, K9 and K4 launches a query;
   7. g2: phases 5 and 6 over G2 at the same n and config (the SOS query
      on two scalar sets), each path launching the G2 kernels (and K1 or
      K6, which Fp2's products run through) and none of the G1 point and
@@ -281,8 +283,9 @@ def driver_kernels(dev, record):
 
 def curve_kernels(dev, case, record):
     """K2 at 2^16 lanes, K3 at the CHES path's level (c=112, n_ch=8192), K4
-    at its integration scan's level (c=54, n_ch=2048) and K5 at BGMW's first
-    two levels, for one curve."""
+    and K9 over K3's local prefixes (the query paths' stream lengths; the
+    CHES integration's gap groups) and K5 at BGMW's first two levels, for
+    one curve."""
     from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
     from msm_blst_tpu_torch.msm import cuda_scan, fixed_point_list
 
@@ -338,23 +341,9 @@ def curve_kernels(dev, case, record):
            c * n_ch * (6 * E + 4) + 4 * E * n_ch,
            case.mont(DADD_AFFINE) * (c - 1) * n_ch)
 
-    # K4 at the integration suffix scan's level shape (c=54, n_ch=2048)
-    c4, n4 = cuda_scan._shape_stream(109243)
-    local = k3()[0].reshape(-1, 4, W)[: c4 * n4]
-    cols = XyzzPoint(*(local[:, i].reshape(c4, n4, W).permute(0, 2, 1)
-                       .reshape((c4,) + curve.F.lead + (n4,)).contiguous()
-                       for i in range(4)))
-
-    def k4():
-        s, t = cuda_scan.xyzz_scan_level(curve, cols)
-        return tuple(s) + tuple(t)
-
-    def k4_plain():
-        s, t = cuda_scan.xyzz_scan_level_plain(curve, cols)
-        return tuple(s) + tuple(t)
-
-    record(case.name("xyzz_scan_level"), k4, k4_plain, 5, 1,
-           c4 * n4 * 8 * E + 4 * E * n4, case.mont(DADD) * (c4 - 1) * n4)
+    # K4 at the query paths' stream lengths, over K3's local prefixes
+    local = k3()[0].reshape(-1, 4, W)
+    scan_kernel(dev, case, record, local[:109243])
 
     # K9 on the integration's gap groups, over K3's local prefixes
     fold_kernel(dev, case, record, local[:109243])
@@ -382,14 +371,75 @@ def queued_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def one_lane_dadd_ms(curve, pts) -> float:
+    """queued_ms of a K2 dadd of lanes 0 and 4 of `pts`: one add's latency."""
+    from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
+
+    one = XyzzPoint(*(c[..., :1].contiguous() for c in pts))
+    two = XyzzPoint(*(c[..., 4:5].contiguous() for c in pts))
+    return queued_ms(lambda: cuda_point.xyzz_dadd(curve, one, two), 50)
+
+
+# K4's stream lengths on the query paths at n = 2^16: stock's weighted sums
+# of its bucket grid's rows, the K3 level's chunk tails (stock's windows;
+# CHES), and the CHES integration's suffix scan (|B| - 1), recorded last
+SCAN_LENGTHS = (64, 2048, 8192, 109243)
+
+
+def scan_kernel(dev, case, record, rows):
+    """K4 against its plain twin at each of SCAN_LENGTHS: the first N of a
+    109,243-point xyzz batch (`rows`: (M, 4, W) words of real sums) that
+    starts P, P, -2P (the running sum doubles, then cancels), holds a P, -P
+    pair at 10, 11 and infinity every 997th lane from 5. Beside the bound,
+    which counts the function's N - 1 adds, the print line gives the
+    schedule and the depth model: the adds on the longest chain of the
+    schedule times a one-lane K2 dadd. The JSON line keeps the last
+    length's measurements and every length's under "shapes"."""
+    from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
+    from msm_blst_tpu_torch.msm import scan
+
+    curve, E = case.curve, case.elem_bytes
+    name = case.name("xyzz_prefix_scan")
+    pts = XyzzPoint(*(curve.from_words(rows[:, i].T) for i in range(4)))
+    two = cuda_point.xyzz_double_plain(
+        curve, XyzzPoint(*(c[..., :1] for c in pts)))
+    for c, d in zip(pts, two):
+        c[..., 5::997] = 0
+        c[..., 1] = c[..., 0]
+        c[..., 2:3] = d
+        c[..., 11] = c[..., 10]
+    for i in (2, 11):
+        pts.Y[..., i:i + 1] = curve.F.plain.neg(pts.Y[..., i:i + 1])
+    one_ms = one_lane_dadd_ms(curve, pts)
+    shapes = []
+    for N in SCAN_LENGTHS:
+        head = XyzzPoint(*(c[..., :N].contiguous() for c in pts))
+        got = scan.prefix_scan_xyzz(curve, head)
+        if N > 2 and any(bool(c[..., 2].any()) for c in (got.ZZ, got.ZZZ)):
+            raise AssertionError("K4: P + P - 2P is not infinity")
+        r = record(name, lambda: tuple(scan.prefix_scan_xyzz(curve, head)),
+                   lambda: tuple(scan.prefix_scan_xyzz_plain(curve, head)),
+                   10, 1, 8 * E * N, case.mont(DADD) * (N - 1))
+        r["N"] = N
+        s = scan.scan_schedule(N)
+        depth = scan.scan_depth(s)
+        print(f"kernel {name} N={N}: (k, tiles, k_carry) {tuple(s)}, "
+              f"{1 if s.n_tiles == 1 else 3} grid launch(es) a call by the "
+              f"schedule, depth {depth} adds x one-lane dadd {one_ms:.4f} ms"
+              f" = {depth * one_ms:.4f} ms")
+        shapes.append(dict(r))
+    r["shapes"] = shapes  # r is the kernel's entry in the JSON line
+
+
 def fold_kernel(dev, case, record, rows):
     """K9 against its plain version at the CHES integration's shape: the
     six gap groups of CONFIGS[16] (engine.gap_groups) indexed into a
     109,243-point xyzz batch (`rows`: (M, 4, W) words of real sums; every
     997th lane from lane 5 set to infinity), and three more segments: P
     and P (the add doubles), P and -P (it cancels), and an empty one.
-    Beside the bound, the depth: the adds on the longest thread chain,
-    summed over the passes, times the time of a one-lane K2 dadd launch."""
+    Beside the bound, the print line gives the depth model: the adds on
+    the longest thread chain, summed over the passes, times a one-lane K2
+    dadd."""
     from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
     from msm_blst_tpu_torch.msm import params, scan
     from msm_blst_tpu_torch.msm.engine import gap_groups
@@ -424,23 +474,18 @@ def fold_kernel(dev, case, record, rows):
         raise AssertionError("K9: P + P is not 2P")
     if any(bool(x[..., g + 1:].any()) for x in got):
         raise AssertionError("K9: P - P or the empty segment is not infinity")
-    r = record(case.name("xyzz_fold"), k9, k9_plain, 20, 1,
-               int(lengths.sum()) * (4 * E + 8) + 4 * E * len(lengths),
-               case.mont(DADD) * int(np.maximum(lengths - 1, 0).sum()))
-    one = XyzzPoint(*(c[..., :1].contiguous() for c in pts))
-    two = XyzzPoint(*(c[..., 4:5].contiguous() for c in pts))
-    r["dadd_one_lane_ms"] = queued_ms(
-        lambda: cuda_point.xyzz_dadd(curve, one, two), 50)
+    record(case.name("xyzz_fold"), k9, k9_plain, 20, 1,
+           int(lengths.sum()) * (4 * E + 8) + 4 * E * len(lengths),
+           case.mont(DADD) * int(np.maximum(lengths - 1, 0).sum()))
+    one_ms = one_lane_dadd_ms(curve, pts)
     sched = scan.fold_schedule(offsets)
-    r["passes"] = [(k, len(t)) for k, t in sched]
     # thread 0's adds: one fewer than its elements, then every tree level
-    r["depth_adds"] = sum(
+    depth = sum(
         int(-(-(t[:, 1] - t[:, 0]).max() // scan.FOLD_THREADS)) - 1
         + scan.FOLD_THREADS.bit_length() - 1 for _, t in sched)
-    r["depth_ms"] = r["depth_adds"] * r["dadd_one_lane_ms"]
-    print(f"kernel {case.name('xyzz_fold')}: passes (k, tiles) {r['passes']},"
-          f" depth {r['depth_adds']} adds x one-lane dadd "
-          f"{r['dadd_one_lane_ms']:.4f} ms = {r['depth_ms']:.4f} ms")
+    print(f"kernel {case.name('xyzz_fold')}: passes (k, tiles) "
+          f"{[(k, len(t)) for k, t in sched]}, depth {depth} adds x one-lane"
+          f" dadd {one_ms:.4f} ms = {depth * one_ms:.4f} ms")
 
 
 def seg_work(keys, n_buckets: int, in_bytes: int, mont_add: int,
@@ -569,7 +614,7 @@ def read_counts(path: str, names, unused=()) -> dict:
 # The kernels each query launches: the integration's adds, doublings,
 # suffix scan and folds (K9) and the conversion to Jacobian, then those of
 # its bucket strategy. By op, for either curve; K1 (mont_mul) serves both.
-QUERY_KERNELS = ["point_dadd", "point_double", "xyzz_scan_level",
+QUERY_KERNELS = ["point_dadd", "point_double", "xyzz_prefix_scan",
                  "xyzz_fold"]
 STRATEGY_KERNELS = {"prefix": ["affine_prefix_level"],
                     "segmented": ["seg_level_affine", "seg_level_xyzz"]}
@@ -598,9 +643,10 @@ def path_kernels(case, ops, impl=None, mul_impl="cios"):
 
 def per_query(path: str, case, launches: dict, queries: int,
               before=None) -> None:
-    """The path's K2 dadd and K9 launches a query (less those counted in
-    `before`, a snapshot taken before the queries)."""
-    for name in (case.name("point_dadd"), case.name("xyzz_fold")):
+    """The path's K2 dadd, K9 and K4 launches a query (less those counted
+    in `before`, a snapshot taken before the queries)."""
+    for name in (case.name("point_dadd"), case.name("xyzz_fold"),
+                 case.name("xyzz_prefix_scan")):
         n = launches[name] - (before or {}).get(name, 0)
         print(f"{path}: {name} launches a query: {n / queries:g}")
 
@@ -778,7 +824,7 @@ _PALLAS = {
     "point": "msm_blst_tpu/curves/pallas_point.py:49",
     "xyzz_fold": "msm_blst_tpu/curves/pallas_point.py:49",
     "affine_prefix_level": "msm_blst_tpu/msm/pallas_scan.py:463",
-    "xyzz_scan_level": "msm_blst_tpu/msm/pallas_scan.py:367",
+    "xyzz_prefix_scan": "msm_blst_tpu/msm/pallas_scan.py:367",
     "seg": "msm_blst_tpu/msm/pallas_scan.py:93",
     "madd_chain": "drivers/microbench.py:44",
     "gather_smem": "drivers/gather_bench.py:95",

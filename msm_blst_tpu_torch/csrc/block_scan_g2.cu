@@ -1,0 +1,17 @@
+// The block scan for G2 (coordinates in Fp2, each a [2, 12, n] column
+// batch): the C entry point of block_scan.cuh.
+
+#include "block_scan.cuh"
+
+using msm::Fp2;
+
+extern "C" int msm_g2_xyzz_prefix_scan(const void* x, const void* y,
+                                       const void* zzz, const void* zz,
+                                       void* ox, void* oy, void* ozzz,
+                                       void* ozz, void* scratch, int64_t n,
+                                       int64_t n_tiles, int k, int k_carry,
+                                       void* stream) {
+  return msm::block_scan::prefix_scan<Fp2>(x, y, zzz, zz, ox, oy, ozzz, ozz,
+                                           scratch, n, n_tiles, k, k_carry,
+                                           stream);
+}

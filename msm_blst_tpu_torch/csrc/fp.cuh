@@ -592,30 +592,6 @@ MSM_HD void affine_prefix_lane(const uint32_t* rows_x, const uint32_t* rows_y,
   store_xyzz(tails, run, n_ch, k);
 }
 
-// K4, lane k: inclusive xyzz prefix down c columns. Coordinates in column
-// layout (c, W, n_ch); column j of lane k is element k of batch j.
-template <class F>
-MSM_HD void xyzz_scan_lane(XyzzCols in, XyzzColsOut out, XyzzColsOut tails,
-                           int c, int64_t n_ch, int64_t k) {
-  XyzzT<F> run;
-  const int64_t col = (int64_t)Words<F>::value * n_ch;
-  for (int j = 0; j < c; ++j) {
-    XyzzCols cj = {in.x + j * col, in.y + j * col, in.zzz + j * col,
-                   in.zz + j * col};
-    XyzzColsOut oj = {out.x + j * col, out.y + j * col, out.zzz + j * col,
-                      out.zz + j * col};
-    XyzzT<F> pt;
-    load_xyzz(pt, cj, n_ch, k);
-    if (j == 0) {
-      run = pt;
-    } else {
-      xyzz_dadd(run, run, pt);
-    }
-    store_xyzz(oj, run, n_ch, k);
-  }
-  store_xyzz(tails, run, n_ch, k);
-}
-
 // K5, lane k: one level of the segmented bucket reduction down c columns
 // of a key-sorted stream (msm_blst_tpu/msm/pallas_scan.py:149-234). A key
 // change closes the run: the run that touched column 0 becomes the lane's
@@ -652,7 +628,8 @@ struct SegAffineSrc {
   }
 };
 
-// Xyzz stream in K4's column layout: coordinates (c, W, n_ch).
+// Xyzz stream in column layout: coordinates (c, W, n_ch); column j of lane
+// k is element k of batch j.
 template <class F>
 struct SegXyzzSrc {
   XyzzCols in;

@@ -1,4 +1,4 @@
-// K3 and K4 for G1 (coordinates in Fp): the C entry points of scan.cuh.
+// K3 for G1 (coordinates in Fp): the C entry point of scan.cuh.
 
 #include "scan.cuh"
 
@@ -10,13 +10,4 @@ extern "C" int msm_affine_prefix_level(const void* rows_x, const void* rows_y,
                                        int64_t n_ch, void* stream) {
   return msm::scan::affine_prefix_level<Fp>(rows_x, rows_y, signs, local, tx,
                                             ty, tzzz, tzz, c, n_ch, stream);
-}
-
-extern "C" int msm_xyzz_scan_level(const void* x, const void* y, const void* zzz,
-                                   const void* zz, void* ox, void* oy,
-                                   void* ozzz, void* ozz, void* tx, void* ty,
-                                   void* tzzz, void* tzz, int c, int64_t n_ch,
-                                   void* stream) {
-  return msm::scan::xyzz_scan_level<Fp>(x, y, zzz, zz, ox, oy, ozzz, ozz, tx,
-                                        ty, tzzz, tzz, c, n_ch, stream);
 }

@@ -1,21 +1,19 @@
-// K3 and K4: the level kernels of the prefix-scan bucket pipeline, as
-// kernel templates over the coordinate field (Fp for G1 in scan.cu, Fp2 for
-// G2 in scan_g2.cu).
+// K3: the level kernel of the prefix-scan bucket pipeline, as a kernel
+// template over the coordinate field (Fp for G1 in scan.cu, Fp2 for G2 in
+// scan_g2.cu).
 //
 // K3 replaces msm_blst_tpu/msm/pallas_scan.py _affine_prefix_kernel
 // (entered through affine_prefix_level): an inclusive prefix of a signed
 // affine stream down c columns per lane, run += +-P with the mixed add,
 // emitting every local prefix as a row and each lane's tail.
-// K4 replaces pallas_scan.py _scan_kernel (entered through
-// prefix_scan_xyzz): the same over an xyzz stream with the full add.
 //
 // On the TPU the grid walks the columns in order and carries the run in
 // VMEM scratch. Blocks on Hopper run in no order, so each thread owns one
 // lane and loops over the c columns with its run in registers: nothing
 // carries between blocks.
 //
-// Bound on the H100: integer multiplies (G1: 12 or 16 Montgomery products
-// per element; G2: three per Fp2 product) and the serial dependence down a
+// Bound on the H100: integer multiplies (the mixed add's Montgomery
+// products; on G2 three per Fp2 product) and the serial dependence down a
 // lane. The stream shape is kept from the JAX package so intermediates
 // match it; at the CHES path's shape (c = 112, n_ch = 8192) that gives 8192
 // threads, 64 blocks of 128 on 132 SMs, which leaves most of the card idle.
@@ -40,13 +38,6 @@ __global__ void affine_prefix_kernel(const uint32_t* rows_x,
     affine_prefix_lane<F>(rows_x, rows_y, signs, local, tails, c, n_ch, k);
 }
 
-template <class F>
-__global__ void xyzz_scan_kernel(XyzzCols in, XyzzColsOut out, XyzzColsOut tails,
-                                 int c, int64_t n_ch) {
-  int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < n_ch) xyzz_scan_lane<F>(in, out, tails, c, n_ch, k);
-}
-
 constexpr int THREADS = 128;
 
 inline unsigned blocks_for(int64_t n) {
@@ -64,24 +55,6 @@ int affine_prefix_level(const void* rows_x, const void* rows_y,
     affine_prefix_kernel<F><<<blocks_for(n_ch), THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)rows_x, (const uint32_t*)rows_y, (const int32_t*)signs,
         (uint32_t*)local, tails, c, n_ch);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <class F>
-int xyzz_scan_level(const void* x, const void* y, const void* zzz,
-                    const void* zz, void* ox, void* oy, void* ozzz, void* ozz,
-                    void* tx, void* ty, void* tzzz, void* tzz, int c,
-                    int64_t n_ch, void* stream) {
-  if (c > 0 && n_ch > 0) {
-    XyzzCols in = {(const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)zzz,
-                   (const uint32_t*)zz};
-    XyzzColsOut out = {(uint32_t*)ox, (uint32_t*)oy, (uint32_t*)ozzz,
-                       (uint32_t*)ozz};
-    XyzzColsOut tails = {(uint32_t*)tx, (uint32_t*)ty, (uint32_t*)tzzz,
-                         (uint32_t*)tzz};
-    xyzz_scan_kernel<F><<<blocks_for(n_ch), THREADS, 0, (cudaStream_t)stream>>>(
-        in, out, tails, c, n_ch);
   }
   return (int)cudaGetLastError();
 }

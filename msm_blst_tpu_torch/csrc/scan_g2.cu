@@ -1,5 +1,5 @@
-// K3 and K4 for G2 (coordinates in Fp2: 24-word row halves, [2, 12, n_ch]
-// columns): the C entry points of scan.cuh.
+// K3 for G2 (coordinates in Fp2: 24-word row halves, [2, 12, n_ch]
+// columns): the C entry point of scan.cuh.
 
 #include "scan.cuh"
 
@@ -13,13 +13,4 @@ extern "C" int msm_g2_affine_prefix_level(const void* rows_x,
                                           void* stream) {
   return msm::scan::affine_prefix_level<Fp2>(rows_x, rows_y, signs, local, tx,
                                              ty, tzzz, tzz, c, n_ch, stream);
-}
-
-extern "C" int msm_g2_xyzz_scan_level(const void* x, const void* y,
-                                      const void* zzz, const void* zz,
-                                      void* ox, void* oy, void* ozzz, void* ozz,
-                                      void* tx, void* ty, void* tzzz, void* tzz,
-                                      int c, int64_t n_ch, void* stream) {
-  return msm::scan::xyzz_scan_level<Fp2>(x, y, zzz, zz, ox, oy, ozzz, ozz, tx,
-                                         ty, tzzz, tzz, c, n_ch, stream);
 }

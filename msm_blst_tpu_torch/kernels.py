@@ -184,14 +184,16 @@ _CURVE_OPS = {
     "point_double": ("xyzz_double", "point_ops", [_P] * 8 + [_I64]),
     "affine_prefix_level": ("affine_prefix_level", "scan",
                             [_P] * 8 + [_I32, _I64]),
-    "xyzz_scan_level": ("xyzz_scan_level", "scan", [_P] * 12 + [_I32, _I64]),
     "seg_level_affine": ("seg_level_affine", "seg",
                          [_P] * 8 + [_I64] + [_P] * 10 + [_I32, _I64]),
     "seg_level_xyzz": ("seg_level_xyzz", "seg",
                        [_P] * 9 + [_I64] + [_P] * 10 + [_I32, _I64]),
     "xyzz_fold": ("xyzz_fold", "fold", [_P] * 10 + [_I64, _I64, _I32]),
+    "xyzz_prefix_scan": ("xyzz_prefix_scan", "block_scan",
+                         [_P] * 9 + [_I64, _I64, _I32, _I32]),
 }
-# each curve's tag: G1's kernels are csrc/{point_ops,scan,seg,fold}.cu, msm_*;
+# each curve's tag: G1's kernels are
+# csrc/{point_ops,scan,seg,fold,block_scan}.cu, msm_*;
 # G2's csrc/*_g2.cu, msm_g2_*, reported as g2_*
 _CURVE_TAGS = {"G1": "", "G2": "g2"}
 CURVE_KERNELS = {

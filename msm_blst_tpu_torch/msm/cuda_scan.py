@@ -1,4 +1,4 @@
-"""K3, K4 and K5: the level kernels of the two bucket pipelines
+"""K3 and K5: the level kernels of the two bucket pipelines
 (csrc/scan.cu, csrc/seg.cu) and their plain twins.
 
 Each kernel has a G1 and a G2 instance (csrc/scan.cu and seg.cu,
@@ -12,12 +12,6 @@ _affine_prefix_kernel (via affine_prefix_level): the level-1 inclusive
 prefix of a signed affine stream down `c` columns per lane, emitting every
 local prefix as a row (X||Y||ZZZ||ZZ words) and each lane's xyzz tail.
 
-K4 `xyzz_scan_level` replaces pallas_scan.py _scan_kernel (via
-prefix_scan_xyzz): the same over an xyzz stream in column layout.
-`prefix_scan_xyzz` keeps the JAX structure around it — `_shape_stream`,
-the level, then the chunk-tail carry combine in plain scans plus one wide
-K2 dadd — so its intermediates match the JAX package's.
-
 K5 `seg_level` replaces pallas_scan.py _seg_kernel (via _run_level and
 segmented_reduce): one level of the segmented head/tail/emission bucket
 reduction, affine (level 1) or xyzz (later levels). Complete runs go
@@ -28,6 +22,9 @@ least MIN_LEVEL_N elements, the `pick_chunk` columns of its unfused
 scan._segmented_reduce_xyzz below that, then the terminal two-element
 merge. The TPU's lane slicing (_slice_lanes and its VMEM budgets) and its
 opt-in (`available`) are not carried over: one launch takes all lanes.
+
+The xyzz prefix scan (pallas_scan.py _scan_kernel and the chunk-tail carry
+around it) is K4, the block scan of msm/scan.py `prefix_scan_xyzz`.
 
 On a CUDA tensor every call goes through its kernel: the TPU launch-cost
 thresholds (MIN_SCAN_N, prefix_available) gate nothing here. CPU tensors
@@ -47,12 +44,11 @@ from ..utils import scans
 MIN_LEVEL_N = 1024
 
 
-def _shape_stream(N: int, c_target: int = 32, min_lanes: int = 128):
+def _shape_stream(N: int, c_target: int = 32):
     """(columns, lanes) for a stream of N elements, as the JAX package
-    picks them: lanes a power of two >= min_lanes (its 128-lane TPU block),
-    ~c_target columns."""
-    n_ch = max(min_lanes,
-               1 << max(int(np.floor(np.log2(max(N // c_target, 1)))), 0))
+    picks them: lanes a power of two >= 128 (its TPU block), ~c_target
+    columns."""
+    n_ch = max(128, 1 << max(int(np.floor(np.log2(max(N // c_target, 1)))), 0))
     return max(2, -(-N // n_ch)), n_ch
 
 
@@ -112,73 +108,6 @@ def affine_prefix_level(curve, rows_x, rows_y, sgn_cols):
         ptr(rows_x), ptr(rows_y), ptr(sgn), ptr(local), *map(ptr, tails), c,
         n_ch)
     return local, XyzzPoint(*tails)
-
-
-# ---- K4 -----------------------------------------------------------------------
-
-
-def xyzz_scan_level_plain(curve, cols: XyzzPoint):
-    """Plain K4: coordinates (c, *F.lead, n_ch) -> (inclusive scans down
-    the columns, same shape; tails XyzzPoint of (*F.lead, n_ch))."""
-    F = curve.F.plain
-    c = cols.X.shape[0]
-    run = XyzzPoint(*(x[0] for x in cols))
-    outs = [run]
-    for j in range(1, c):
-        run = curve.xyzz_dadd_body(run, XyzzPoint(*(x[j] for x in cols)), F=F)
-        outs.append(run)
-    return XyzzPoint(*(torch.stack([o[i] for o in outs]) for i in range(4))), run
-
-
-def xyzz_scan_level(curve, cols: XyzzPoint):
-    """Inclusive xyzz prefix down the columns of (c, *F.lead, n_ch)
-    coordinates. Returns (scans of the same shape, tails XyzzPoint of
-    (*F.lead, n_ch))."""
-    if on_cpu(cols.X):
-        return xyzz_scan_level_plain(curve, cols)
-    ins = [x.contiguous() for x in cols]
-    check_cuda("xyzz_scan_level", ins)
-    c, n_ch = ins[0].shape[0], ins[0].shape[-1]
-    if any(tuple(x.shape) != (c,) + curve.F.lead + (n_ch,) for x in ins):
-        raise ValueError("xyzz_scan_level: coordinates must share a "
-                         "(c, *F.lead, n_ch) shape")
-    outs = [torch.empty_like(ins[0]) for _ in range(4)]
-    tails = _empty(curve, n_ch, ins[0].device)
-    CURVE_KERNELS[curve.name]["xyzz_scan_level"](
-        *map(ptr, ins + outs + tails), c, n_ch)
-    return XyzzPoint(*outs), XyzzPoint(*tails)
-
-
-def prefix_scan_xyzz(curve, pts: XyzzPoint) -> XyzzPoint:
-    """Inclusive prefix scan over a 1-D xyzz batch (*F.lead, N): one level
-    in column layout, then the chunk-tail carry combine (as utils/scans
-    prefix_scan) with one wide dadd. The JAX package takes this route only
-    from MIN_SCAN_N = 4096 elements, where its 128-lane floor never binds;
-    here every size does, so the floor is dropped rather than padding a
-    short stream (an integration's few buckets) to 128 lanes."""
-    N = pts.X.shape[-1]
-    c, n_ch = _shape_stream(N, min_lanes=1)
-    pad = n_ch * c - N
-
-    lead = curve.F.lead
-
-    def to_cols(x):  # (*lead, N) -> (c, *lead, n_ch); column j: k*c + j
-        x = scans.pad_last(x, pad)
-        return x.reshape(lead + (n_ch, c)).movedim(-1, 0).contiguous()
-
-    level, tails = xyzz_scan_level(curve, XyzzPoint(*map(to_cols, pts)))
-    stream = XyzzPoint(*(x.movedim(0, -1).reshape(lead + (-1,))
-                         for x in level))  # index k*c + j
-    if n_ch > 1:
-        tails_scan = scans.prefix_scan(curve.xyzz_dadd, tails)
-        carry = XyzzPoint(*(x[..., :-1].repeat_interleave(c, dim=-1)
-                            for x in tails_scan))
-        head = XyzzPoint(*(x[..., :c] for x in stream))
-        rest = XyzzPoint(*(x[..., c:] for x in stream))
-        combined = curve.xyzz_dadd(carry, rest)
-        stream = XyzzPoint(*(torch.cat([h, r], dim=-1)
-                             for h, r in zip(head, combined)))
-    return XyzzPoint(*(x[..., :N] for x in stream))
 
 
 # ---- K5 -----------------------------------------------------------------------

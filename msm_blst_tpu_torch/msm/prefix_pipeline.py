@@ -10,7 +10,7 @@ and xyzz negation is free (negate Y). Pipeline:
   1. column-major index permutation (stream pos k*c + j -> lane k, column j),
   2. packed table row gather,
   3. level-1 prefix down each lane's columns (K3, cuda_scan),
-  4. prefix scan over the n_ch chunk tails (K4 + carry combine),
+  4. prefix scan over the n_ch chunk tails (K4, the block scan),
   5. per-bucket boundary gathers + bucket-wide dadds (K2).
 
 Every index the pipeline forms is in range by construction: the stream is
@@ -26,6 +26,7 @@ import torch
 from ..curves.ops import PackedRows32, XyzzPoint
 from ..utils.scans import pick_chunk
 from . import cuda_scan
+from .scan import prefix_scan_xyzz
 
 
 def stream_shape(N: int):
@@ -73,7 +74,7 @@ def buckets_from_boundaries(curve, local, tails: XyzzPoint, keys_s,
     F = curve.F
     W = F.n_words
     dev = keys_s.device
-    incl = cuda_scan.prefix_scan_xyzz(curve, tails)
+    incl = prefix_scan_xyzz(curve, tails)
     inf1 = curve.xyzz_inf((1,), dev)
     excl = XyzzPoint(*(torch.cat([z, x[..., :-1]], dim=-1)
                        for z, x in zip(inf1, incl)))

@@ -1,6 +1,7 @@
 """EC folds, scans and the segmented bucket reduction over xyzz batches
-(port of msm_blst_tpu/msm/scan.py), and K9, the segmented xyzz fold
-(csrc/fold.cu for G1, csrc/fold_g2.cu for G2), with its plain twin.
+(port of msm_blst_tpu/msm/scan.py); K9, the segmented xyzz fold
+(csrc/fold.cu for G1, csrc/fold_g2.cu for G2), and K4, the block scan
+(csrc/block_scan.cu, csrc/block_scan_g2.cu), each with its plain twin.
 
 The folds and suffix scans replace the reference's serial bucket
 integration loops (multi_scalar.c:281-344); the segmented reduction
@@ -13,6 +14,13 @@ formula launch a column. It sums a tile of FOLD_THREADS * k elements a
 block, a serial stage then a tree, pass after pass (`fold_tiles` picks k
 and cuts the tiles on the host). The terms associate otherwise than in the
 JAX fold: the sums are the same points, not the same xyzz words.
+
+Every xyzz prefix or suffix scan goes through `prefix_scan_xyzz`. K4
+replaces msm_blst_tpu/msm/pallas_scan.py _scan_kernel with the chunk-tail
+scan and carry around it: tiles of FOLD_THREADS * k elements, k a thread
+in order, a block scan of the thread sums, one block over the tile totals,
+then each thread's k sums from its offset (`scan_schedule` picks k). Its
+sums associate otherwise than JAX's too.
 
 Segmented-reduction correctness (as the JAX module argues it): a key-sorted
 stream is cut into contiguous chunks. In a chunk, runs strictly inside it
@@ -36,12 +44,11 @@ import torch
 from ..curves.ops import XyzzPoint
 from ..kernels import CURVE_KERNELS, check_cuda, on_cpu, ptr
 from ..utils import scans
-from ..utils.scans import DEFAULT_CHUNK
 from . import cuda_scan
 
-# K9's block (csrc/fold.cuh THREADS), and the blocks that fill the H100 in
-# one wave: 132 SMs, two blocks of 128 threads an SM at 255 registers a
-# thread (K2's dadd).
+# K9's and K4's block (csrc/fold.cuh and block_scan.cuh THREADS), and the
+# blocks that fill the H100 in one wave: 132 SMs, two blocks of 128 threads
+# an SM at 255 registers a thread (K2's dadd).
 FOLD_THREADS = 128
 FOLD_WAVE = 132 * 2
 
@@ -208,16 +215,160 @@ def fold_xyzz(curve, pts: XyzzPoint) -> XyzzPoint:
     return XyzzPoint(*(c.unsqueeze(-1) for c in out))
 
 
-def suffix_scan_xyzz(curve, pts: XyzzPoint,
-                     chunk: int = DEFAULT_CHUNK) -> XyzzPoint:
-    """Inclusive suffix sums S_i = sum_{j>=i} pts[j], full width. A 1-D
-    batch goes through the level kernel (cuda_scan.prefix_scan_xyzz) on the
-    flipped stream; torch.flip stands in for JAX's reversed slice."""
-    if pts.X.ndim == len(curve.F.lead) + 1:
-        rev = XyzzPoint(*(torch.flip(c, dims=(-1,)) for c in pts))
-        out = cuda_scan.prefix_scan_xyzz(curve, rev)
-        return XyzzPoint(*(torch.flip(c, dims=(-1,)) for c in out))
-    return scans.suffix_scan(curve.xyzz_dadd, pts, chunk)
+class ScanSchedule(NamedTuple):
+    """K4's launch shape for a stream of N elements: k elements a thread,
+    n_tiles tiles of FOLD_THREADS * k elements, and k_carry tile totals a
+    thread in the carry pass (0 when one tile holds the stream)."""
+
+    k: int
+    n_tiles: int
+    k_carry: int
+
+
+def scan_depth(s: ScanSchedule) -> int:
+    """Adds on K4's longest chain: a thread's k - 1, the block scan's
+    log2(FOLD_THREADS), its k emissions; with more than one tile also the
+    carry pass (the same three over the totals) and the offset's add."""
+    lg = FOLD_THREADS.bit_length() - 1
+    depth = (s.k - 1) + lg + s.k
+    if s.n_tiles > 1:
+        depth += (s.k_carry - 1) + lg + s.k_carry + 1
+    return depth
+
+
+@functools.lru_cache(maxsize=256)
+def scan_schedule(N: int) -> ScanSchedule:
+    """The schedule of least scan_depth whose tiles fit in one FOLD_WAVE
+    (the smaller k on a tie). Every k has a depth of at least 2k - 1 +
+    log2(FOLD_THREADS), which ends the search."""
+    T = FOLD_THREADS
+    lg = T.bit_length() - 1
+    k = max(1, -(-N // (T * FOLD_WAVE)))
+    best = None
+    while best is None or 2 * k - 1 + lg < scan_depth(best):
+        n_tiles = max(1, -(-N // (T * k)))
+        s = ScanSchedule(k, n_tiles, 0 if n_tiles == 1 else -(-n_tiles // T))
+        if best is None or scan_depth(s) < scan_depth(best):
+            best = s
+        if n_tiles == 1:
+            break
+        k += 1
+    return best
+
+
+def _shifted(pts: XyzzPoint) -> XyzzPoint:
+    """Each element replaced by its predecessor along the last axis, the
+    first by infinity."""
+    return XyzzPoint(*(torch.cat([c.new_zeros(c.shape[:-1] + (1,)),
+                                  c[..., :-1]], dim=-1) for c in pts))
+
+
+def _block_scan(curve, acc: XyzzPoint) -> XyzzPoint:
+    """The kernel's Kogge-Stone scan along the last axis (the threads): at
+    d = 1, 2, .., T/2 thread j >= d adds thread j - d's sum in front of its
+    own."""
+    d = 1
+    while d < acc.X.shape[-1]:
+        added = _dadd_lanes(curve, XyzzPoint(*(c[..., :-d] for c in acc)),
+                            XyzzPoint(*(c[..., d:] for c in acc)))
+        acc = XyzzPoint(*(torch.cat([c[..., :d], a], dim=-1)
+                          for c, a in zip(acc, added)))
+        d *= 2
+    return acc
+
+
+def _thread_elems(pts: XyzzPoint, k: int, n_tiles: int):
+    """(*lead, N) -> the k elements of every thread, a list of k
+    XyzzPoints of (*lead, n_tiles, FOLD_THREADS); infinity past N."""
+    N, T = pts.X.shape[-1], FOLD_THREADS
+    x = XyzzPoint(*(scans.pad_last(c, n_tiles * T * k - N)
+                    .reshape(c.shape[:-1] + (n_tiles, T, k)) for c in pts))
+    return [XyzzPoint(*(c[..., e] for c in x)) for e in range(k)]
+
+
+def _thread_sums(curve, elems) -> XyzzPoint:
+    acc = elems[0]
+    for e in elems[1:]:
+        acc = _dadd_lanes(curve, acc, e)
+    return acc
+
+
+def _emit(curve, off: XyzzPoint, elems, N: int) -> XyzzPoint:
+    """From each thread's offset, its k inclusive sums in order, as the
+    stream (*lead, N)."""
+    outs = []
+    for e in elems:
+        off = _dadd_lanes(curve, off, e)
+        outs.append(off)
+    return XyzzPoint(*(torch.stack(cs, dim=-1).reshape(cs[0].shape[:-2] + (-1,))
+                       [..., :N] for cs in zip(*outs)))
+
+
+def _tile_scan_plain(curve, pts: XyzzPoint, k: int) -> XyzzPoint:
+    """The kernel's one-block scan of N <= FOLD_THREADS * k elements: thread
+    sums, block scan, then each thread's sums from thread j - 1's prefix."""
+    elems = _thread_elems(pts, k, 1)
+    incl = _block_scan(curve, _thread_sums(curve, elems))
+    return _emit(curve, _shifted(incl), elems, pts.X.shape[-1])
+
+
+def prefix_scan_xyzz_plain(curve, pts: XyzzPoint) -> XyzzPoint:
+    """Plain K4, batched over every tile and thread, with the kernel's
+    schedule and the operands of every add in its order (the earlier sum
+    first): one tile is _tile_scan_plain; more take the tiles' thread sums
+    and block scans (up), _tile_scan_plain over the tile totals with k_carry
+    (carry), then each thread's k sums from carry[t - 1] + prefix[t, j - 1]
+    (down). On the card it equals K4 word for word."""
+    N = pts.X.shape[-1]
+    k, n_tiles, k_carry = scan_schedule(N)
+    if n_tiles == 1:
+        return _tile_scan_plain(curve, pts, k)
+    elems = _thread_elems(pts, k, n_tiles)
+    part = _block_scan(curve, _thread_sums(curve, elems))
+    carry = _tile_scan_plain(curve, XyzzPoint(*(c[..., -1] for c in part)),
+                             k_carry)
+    before = XyzzPoint(*(c.unsqueeze(-1).expand(part.X.shape).contiguous()
+                         for c in _shifted(carry)))
+    off = _dadd_lanes(curve, before, _shifted(part))
+    return _emit(curve, off, elems, N)
+
+
+def prefix_scan_xyzz(curve, pts: XyzzPoint) -> XyzzPoint:
+    """Inclusive prefix sums of a 1-D xyzz batch (*F.lead, N). CUDA tensors
+    go through K4, one call (one kernel launch for one tile, three for
+    more); CPU tensors take prefix_scan_xyzz_plain."""
+    N = pts.X.shape[-1]
+    if N == 0:
+        return XyzzPoint(*(c.clone() for c in pts))
+    if on_cpu(*pts):
+        return prefix_scan_xyzz_plain(curve, pts)
+    kernel = CURVE_KERNELS[curve.name]["xyzz_prefix_scan"]
+    W = curve.F.n_words
+    if any(tuple(c.shape) != curve.F.lead + (N,) for c in pts):
+        raise ValueError(f"{kernel.symbol}: expected a 1-D batch of "
+                         f"{curve.F.lead + (N,)} coordinates")
+    src = [c.contiguous() for c in pts]
+    check_cuda(kernel.symbol, src)
+    k, n_tiles, k_carry = scan_schedule(N)
+    outs = [torch.empty_like(c) for c in src]
+    scratch = None if n_tiles == 1 else torch.empty(
+        4 * W * n_tiles * (FOLD_THREADS + 2), dtype=torch.int32,
+        device=src[0].device)
+    kernel(*map(ptr, src + outs), None if scratch is None else ptr(scratch),
+           N, n_tiles, k, k_carry)
+    return XyzzPoint(*outs)
+
+
+def suffix_scan_xyzz(curve, pts: XyzzPoint) -> XyzzPoint:
+    """Inclusive suffix sums S_i = sum_{j>=i} pts[j] of a 1-D xyzz batch
+    (*F.lead, N): prefix_scan_xyzz on the flipped stream (torch.flip stands
+    in for JAX's reversed slice)."""
+    if pts.X.ndim != len(curve.F.lead) + 1:
+        raise ValueError(f"suffix_scan_xyzz: expected a 1-D batch, got "
+                         f"{tuple(pts.X.shape)}")
+    flipped = XyzzPoint(*(torch.flip(c, dims=(-1,)) for c in pts))
+    return XyzzPoint(*(torch.flip(c, dims=(-1,))
+                       for c in prefix_scan_xyzz(curve, flipped)))
 
 
 def scan_fold_axis(curve, pts: XyzzPoint, axis: int) -> XyzzPoint:

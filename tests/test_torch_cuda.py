@@ -93,7 +93,6 @@ def test_point_kernels_match_plain(dev, name):
 
 @pytest.mark.parametrize("name", CURVES)
 def test_scan_kernels_match_plain(dev, name):
-    from msm_blst_tpu_torch.curves import XyzzPoint
     from msm_blst_tpu_torch.msm import cuda_scan
 
     curve = _curve(name)
@@ -109,13 +108,33 @@ def test_scan_kernels_match_plain(dev, name):
     wl, wt = cuda_scan.affine_prefix_level_plain(curve, rx, ry, sg)
     assert torch.equal(local, wl)
     assert all(torch.equal(a, b) for a, b in zip(tails, wt))
-    cols = XyzzPoint(*(local.reshape(c, n_ch, 4, W)[:, :, i].permute(0, 2, 1)
-                       .reshape((c,) + curve.F.lead + (n_ch,)).contiguous()
-                       for i in range(4)))
-    got = cuda_scan.xyzz_scan_level(curve, cols)
-    want = cuda_scan.xyzz_scan_level_plain(curve, cols)
-    for gp, wp in zip(got, want):
-        assert all(torch.equal(a, b) for a, b in zip(gp, wp))
+
+
+@pytest.mark.parametrize("name", CURVES)
+@pytest.mark.parametrize("N", [100, 700, 20000])
+def test_block_scan_kernel_matches_plain(dev, name, N):
+    """K4 against its plain twin word for word: one tile (100: k = 1), six
+    tiles (700) and 157 tiles whose carry pass takes two totals a thread
+    (20000), over repeats (doublings), a P, -P pair and infinity."""
+    from msm_blst_tpu_torch.curves import XyzzPoint
+    from msm_blst_tpu_torch.msm import scan
+
+    curve = _curve(name)
+    base = curve.xyzz_double(curve.xyzz_from_affine(_points(32, dev, name)))
+    rng = np.random.default_rng(8)
+    pts = XyzzPoint(*(c[..., torch.as_tensor(rng.integers(0, 32, N),
+                                             device=dev)] for c in base))
+    for c in pts:
+        c[..., 1] = c[..., 0]
+        c[..., 3] = c[..., 2]
+        c[..., 5::97] = 0
+    pts.Y[..., 3] = curve.F.plain.neg(pts.Y[..., 2:3])[..., 0]
+    k, n_tiles, k_carry = scan.scan_schedule(N)
+    assert (n_tiles > 1, k_carry) == {100: (False, 0), 700: (True, 1),
+                                      20000: (True, 2)}[N]
+    got = scan.prefix_scan_xyzz(curve, pts)
+    want = scan.prefix_scan_xyzz_plain(curve, pts)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("name", CURVES)

@@ -1,15 +1,14 @@
-"""K3/K4 and the scans around them against the JAX package.
+"""K3 and the scans around it against the JAX package.
 
 * affine_prefix_level (K3's plain version) against JAX prefix_pipeline.
   local_prefix, whose per-column prefixes and tails are the same xyzz
   words after the layout change to rows.
-* xyzz_scan_level (K4's plain version) against a JAX column loop of
-  G1.xyzz_dadd: the same words.
 * fold_xyzz / scan_fold_axis against JAX msm/scan, in affine.
 * engine.integrate_weighted_consecutive (folds and suffix scans over the
   bucket grid) against JAX's, in affine: K <= 64 (the small path) and
   K > 64 (the grid).
-* prefix_scan_xyzz / suffix_scan_xyzz against JAX utils/scans prefix_scan
+* prefix_scan_xyzz / suffix_scan_xyzz (K4's plain twin; its own tests are
+  in test_torch_block_scan.py) against JAX utils/scans prefix_scan
   (suffix_scan is, by its definition there, the prefix scan of the flipped
   stream, flipped back; the test forms it so to reuse one compilation).
   They associate the terms differently, so they agree as points (compared
@@ -38,8 +37,8 @@ from msm_blst_tpu_torch.curves import G1, XyzzPoint
 from msm_blst_tpu_torch.fields.limb import array_to_ints
 from msm_blst_tpu_torch.msm import cuda_scan
 from msm_blst_tpu_torch.msm.engine import integrate_weighted_consecutive
-from msm_blst_tpu_torch.msm.scan import (fold_xyzz, scan_fold_axis,
-                                         suffix_scan_xyzz)
+from msm_blst_tpu_torch.msm.scan import (fold_xyzz, prefix_scan_xyzz,
+                                         scan_fold_axis, suffix_scan_xyzz)
 from msm_blst_tpu_torch.utils import scans
 
 torch.set_num_threads(1)  # small tensors: threads add contention, not speed
@@ -124,27 +123,8 @@ def _xyzz_stream(n, seed):
     return jax.jit(JG1.xyzz_double)(lifted)
 
 
-def test_xyzz_scan_level_matches_jax_column_loop():
-    c, n_ch = 5, 16
-    js = _xyzz_stream(c * n_ch, 2)
-    cols = _port(js)
-    cols = XyzzPoint(*(x.reshape(12, c, n_ch).permute(1, 0, 2).contiguous()
-                       for x in cols))
-    got, tails = cuda_scan.xyzz_scan_level(G1, cols)
-    dadd = jax.jit(JG1.xyzz_dadd)
-    run = type(js)(*(x[:, :n_ch] for x in js))
-    for j in range(c):
-        if j:
-            run = dadd(run, type(js)(*(x[:, j * n_ch:(j + 1) * n_ch]
-                                       for x in js)))
-        for g, w in zip(got, run):
-            assert np.array_equal(fp_to_jax(g[j]), np.asarray(w))
-    for g, w in zip(tails, run):
-        assert np.array_equal(fp_to_jax(g), np.asarray(w))
-
-
 def test_prefix_and_suffix_scans_match_jax():
-    n = 256  # _shape_stream: c=32 columns over 8 lanes, then the carry
+    n = 256  # scan_schedule: one tile of 128 threads, two elements each
     js = _xyzz_stream(n, 4)
     tp = _port(js)
     jprefix = jax.jit(lambda p: jscans.prefix_scan(JG1.xyzz_dadd, p))
@@ -152,7 +132,7 @@ def test_prefix_and_suffix_scans_match_jax():
     jsuf = jprefix(type(js)(*(x[:, ::-1] for x in js)))
     want_pre = _affine_ints(_port(jpre))
     want_suf = _affine_ints(_port(jsuf))[::-1]
-    assert _affine_ints(cuda_scan.prefix_scan_xyzz(G1, tp)) == want_pre
+    assert _affine_ints(prefix_scan_xyzz(G1, tp)) == want_pre
     assert _affine_ints(suffix_scan_xyzz(G1, tp)) == want_suf
     # same chunking as JAX's utils/scans: the same words
     same = scans.prefix_scan(G1.xyzz_dadd, tp)
