@@ -8,6 +8,9 @@ Phases, each reported on its own lines:
      device;
   2. build: compiles msm_blst_tpu_torch/csrc/*.cu (one nvcc per source, in
      parallel) and reports the time and each kernel's registers and spills;
+     K3's and K4's kernels must keep FOLD_WAVE // 132 blocks resident an SM
+     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the wave the host
+     schedules their launches for;
   3. drivers: the three measurement drivers of the port (microbench,
      mxu_experiment, gather_bench) at the JAX drivers' shapes, each
      printing its JSON lines and counting its launches on its own; the
@@ -18,23 +21,28 @@ Phases, each reported on its own lines:
      the shapes of the n=2^16 paths and the drivers, exact equality, with
      CUDA-event times of both, of the library call where one computes the
      same function, and the least time the card could take for the same
-     work (bytes, integer multiply-adds, tensor-core MACs or FMAs); K9 (the
-     segmented fold) on the CHES integration's six gap groups and K4 (the
-     block scan) at the four stream lengths of the query paths (109,243,
-     8,192, 2,048, 64), each with the depth of its longest chain of adds
-     beside a one-lane K2 dadd's time;
+     work (bytes, integer multiply-adds, tensor-core MACs or FMAs); K3 (the
+     prefix level) at the level shapes of the CHES, BGMW and stock paths
+     and at the JAX package's CHES shape (112, 8,192), K9 (the segmented
+     fold) on the CHES integration's six gap groups and K4 (the block scan)
+     at the stream lengths of the query paths (109,243, 32,768, 16,384, 64)
+     and at 8,192 and 2,048, each with the depth of its longest chain of
+     adds beside a one-lane K2 add's time;
   5. main path: the G1 CHES n=2^16 query (params.CONFIGS[16]) — fixed
      points, the plan, one warm-up and five timed scalar sets — with every
      result checked against the pure-Python oracle and every kernel of the
-     path launched; then the same under the SOS multiply (mul_impl="sos",
-     plan build included), which must launch K6 and never K1;
+     path launched, K3 at the level shape prefix_pipeline.stream_shape
+     gives the path's stream; then the same under the SOS multiply
+     (mul_impl="sos", plan build included), which must launch K6 and never
+     K1;
   6. algorithms: one G1 plan with the CHES, BGMW95 and stock tables at the
      same n and config; host-recode CHES, BGMW95 and stock Pippenger, BGMW
      and stock with both bucket strategies (prefix, segmented), each query
      checked against the oracle; the plan build and each path count their
      launches on their own: every kernel of the path (K5's two variants on
-     the segmented ones, K9 on all) launched, none of the other strategy's;
-     each query path prints its K2 dadd, K9 and K4 launches a query;
+     the segmented ones, K9 on all) launched, none of the other strategy's,
+     K3 (prefix paths) at stream_shape's level shapes; each query path
+     prints its K2 dadd, K9 and K4 launches a query;
   7. g2: phases 5 and 6 over G2 at the same n and config (the SOS query
      on two scalar sets), each path launching the G2 kernels (and K1 or
      K6, which Fp2's products run through) and none of the G1 point and
@@ -168,6 +176,24 @@ def phase_build():
           f"({kernels.library_path().name})")
     for name, regs in sorted(kernels.ptxas_summary().items()):
         print(f"ptxas {name}: {regs}")
+    check_occupancy()
+
+
+def check_occupancy():
+    """K3's and K4's kernels must keep the resident blocks an SM that the
+    host's wave (msm/scan.py FOLD_WAVE blocks on 132 SMs) counts on."""
+    from msm_blst_tpu_torch import kernels
+    from msm_blst_tpu_torch.msm import scan
+
+    per_sm = scan.FOLD_WAVE // SMS
+    for curve in kernels.CURVE_KERNELS:
+        for op in kernels.OCCUPANCY:
+            blocks = kernels.occupancy(curve, op)
+            print(f"occupancy {kernels.CURVE_KERNELS[curve][op].name}: "
+                  f"{blocks} resident blocks an SM (the wave needs {per_sm})")
+            if min(blocks) < per_sm:
+                raise AssertionError(f"{curve} {op}: {blocks} blocks an SM, "
+                                     f"below the wave's {per_sm}")
 
 
 def _random_fp(n: int, seed: int, dev) -> torch.Tensor:
@@ -282,12 +308,12 @@ def driver_kernels(dev, record):
 
 
 def curve_kernels(dev, case, record):
-    """K2 at 2^16 lanes, K3 at the CHES path's level (c=112, n_ch=8192), K4
-    and K9 over K3's local prefixes (the query paths' stream lengths; the
+    """K2 at 2^16 lanes, K3 at the paths' level shapes, K4 and K9 over K3's
+    local prefixes at the CHES level (the query paths' stream lengths; the
     CHES integration's gap groups) and K5 at BGMW's first two levels, for
     one curve."""
-    from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
-    from msm_blst_tpu_torch.msm import cuda_scan, fixed_point_list
+    from msm_blst_tpu_torch.curves import cuda_point
+    from msm_blst_tpu_torch.msm import fixed_point_list
 
     curve, E = case.curve, case.elem_bytes
     W = curve.F.n_words
@@ -316,40 +342,94 @@ def curve_kernels(dev, case, record):
            lambda: tuple(cuda_point.xyzz_double_plain(curve, acc)), 20, 2,
            8 * E * B, case.mont(DOUBLE) * B)
 
-    # K3 at the main path's level shape (c=112, n_ch=8192)
-    c, n_ch = 112, 8192
-    rng = np.random.default_rng(13)
-    rows = curve.to_rows32(pts).XY
-    slots = torch.as_tensor(rng.integers(0, B, size=c * n_ch), device=dev)
-    slots[torch.arange(4, device=dev) * n_ch] = 7  # lane 0: P, 2P, P, inf
-    g = rows.index_select(0, slots)
-    rx = g[:, :W].reshape(c, n_ch, W).contiguous()
-    ry = g[:, W:].reshape(c, n_ch, W).contiguous()
-    sg = torch.as_tensor(rng.integers(0, 2, size=(c, n_ch)), device=dev)
-    sg[:2, 0] = 0
-    sg[2:4, 0] = 1
-
-    def k3():
-        local, t = cuda_scan.affine_prefix_level(curve, rx, ry, sg)
-        return (local,) + tuple(t)
-
-    def k3_plain():
-        local, t = cuda_scan.affine_prefix_level_plain(curve, rx, ry, sg)
-        return (local,) + tuple(t)
-
-    record(case.name("affine_prefix_level"), k3, k3_plain, 5, 1,
-           c * n_ch * (6 * E + 4) + 4 * E * n_ch,
-           case.mont(DADD_AFFINE) * (c - 1) * n_ch)
+    # K3 at the paths' level shapes, the main path's last
+    local = level_kernel(dev, case, record, pts)
 
     # K4 at the query paths' stream lengths, over K3's local prefixes
-    local = k3()[0].reshape(-1, 4, W)
+    local = local.reshape(-1, 4, W)
     scan_kernel(dev, case, record, local[:109243])
 
     # K9 on the integration's gap groups, over K3's local prefixes
     fold_kernel(dev, case, record, local[:109243])
 
     # K5 at BGMW's first two levels: (60, 16384) and (32, 1024)
-    phase_seg_kernels(dev, case, record, rows, rng)
+    phase_seg_kernels(dev, case, record, curve.to_rows32(pts).XY,
+                      np.random.default_rng(13))
+
+
+def level_shapes():
+    """K3's (c, n_ch) at n = 2^16 (CONFIGS[16]), by path, as the port's
+    prefix pipeline shapes them, and the JAX package's CHES shape, first."""
+    from msm_blst_tpu_torch.msm import params, prefix_pipeline
+
+    cfg = params.CONFIGS[N_LOG]
+    n = 1 << N_LOG
+    return {"jax_ches": (112, 8192),
+            "stock": prefix_pipeline.stream_shape(n),
+            "bgmw": prefix_pipeline.stream_shape(n * cfg.h_bgmw),
+            "ches": prefix_pipeline.stream_shape(n * cfg.h)}
+
+
+def level_kernel(dev, case, record, pts):
+    """K3 against its plain version at each of level_shapes(), on rows of
+    the 2^16 fixed points `pts` drawn with a seed: lane 0 runs P, 2P, P,
+    infinity. The bound counts the level's (c - 1) n_ch mixed adds; the
+    print line gives the depth model: c adds times a one-lane K2 mixed
+    add, beside K4's depth over the n_ch tails. The JSON line keeps the
+    CHES shape's measurements (recorded last) and every shape's under
+    "shapes". Returns the CHES level's local rows."""
+    from msm_blst_tpu_torch.curves import cuda_point
+    from msm_blst_tpu_torch.msm import cuda_scan, scan
+
+    curve, E = case.curve, case.elem_bytes
+    W = curve.F.n_words
+    name = case.name("affine_prefix_level")
+    rows = curve.to_rows32(pts).XY
+    one = curve.xyzz_from_affine(type(pts)(*(c[..., :1].contiguous()
+                                             for c in pts)))
+    lone = type(pts)(*(c[..., 4:5].contiguous() for c in pts))
+    sub = torch.zeros(1, dtype=torch.bool, device=dev)
+    one_ms = queued_ms(lambda: cuda_point.xyzz_dadd_affine(curve, one, lone,
+                                                           sub), 50)
+    shapes = []
+    for path, (c, n_ch) in level_shapes().items():
+        rng = np.random.default_rng(13)
+        slots = torch.as_tensor(rng.integers(0, rows.shape[0], size=c * n_ch),
+                                device=dev)
+        slots[torch.arange(4, device=dev) * n_ch] = 7  # lane 0: P, 2P, P, inf
+        g = rows.index_select(0, slots)
+        rx = g[:, :W].reshape(c, n_ch, W).contiguous()
+        ry = g[:, W:].reshape(c, n_ch, W).contiguous()
+        del g
+        sg = torch.as_tensor(rng.integers(0, 2, size=(c, n_ch)), device=dev)
+        sg[:2, 0] = 0
+        sg[2:4, 0] = 1
+
+        def k3():
+            local, t = cuda_scan.affine_prefix_level(curve, rx, ry, sg)
+            return (local,) + tuple(t)
+
+        def k3_plain():
+            local, t = cuda_scan.affine_prefix_level_plain(curve, rx, ry, sg)
+            return (local,) + tuple(t)
+
+        local = k3()[0]
+        if bool(local[3, 0, 2 * W:].any()):
+            raise AssertionError("K3: P + P - P - P is not infinity")
+        r = record(name, k3, k3_plain, 5, 1,
+                   c * n_ch * (6 * E + 4) + 4 * E * n_ch,
+                   case.mont(DADD_AFFINE) * (c - 1) * n_ch)
+        r.update(path=path, c=c, n_ch=n_ch)
+        s = scan.scan_schedule(n_ch)
+        tails = scan.scan_depth(s)
+        print(f"kernel {name} {path} (c, n_ch)=({c}, {n_ch}): "
+              f"{-(-n_ch // 128)} blocks, depth {c} adds x one-lane "
+              f"dadd_affine {one_ms:.4f} ms = {c * one_ms:.4f} ms; K4 over "
+              f"the {n_ch} tails {tuple(s)}, {tails} adds: level and tails "
+              f"{c + tails} adds")
+        shapes.append(dict(r))
+    r["shapes"] = shapes  # r is the kernel's entry in the JSON line
+    return local
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -381,9 +461,11 @@ def one_lane_dadd_ms(curve, pts) -> float:
 
 
 # K4's stream lengths on the query paths at n = 2^16: stock's weighted sums
-# of its bucket grid's rows, the K3 level's chunk tails (stock's windows;
-# CHES), and the CHES integration's suffix scan (|B| - 1), recorded last
-SCAN_LENGTHS = (64, 2048, 8192, 109243)
+# of its bucket grid's rows, the K3 level's lane tails (stock's windows:
+# 16,384; CHES and BGMW: 32,768), and the CHES integration's suffix scan
+# (|B| - 1), recorded last; 2,048 and 8,192 were the tails of the level's
+# earlier shape (the JAX package's)
+SCAN_LENGTHS = (64, 2048, 8192, 16384, 32768, 109243)
 
 
 def scan_kernel(dev, case, record, rows):
@@ -582,6 +664,37 @@ def phase_seg_kernels(dev, case, record, rows, rng):
                *seg_work(kc, n_buckets, in_bytes, case.mont(formula), E))
 
 
+LEVEL_SHAPES = set()  # the (c, n_ch) of each K3 call since reset_counts
+
+
+def spy_level_shapes():
+    """Record the (c, n_ch) of every K3 call the paths make in
+    LEVEL_SHAPES (the prefix pipeline calls cuda_scan.affine_prefix_level
+    through the module)."""
+    from msm_blst_tpu_torch.msm import cuda_scan
+
+    level = cuda_scan.affine_prefix_level
+
+    def spy(curve, rows_x, rows_y, sgn_cols):
+        LEVEL_SHAPES.add(tuple(sgn_cols.shape))
+        return level(curve, rows_x, rows_y, sgn_cols)
+    cuda_scan.affine_prefix_level = spy
+
+
+def check_level_shapes(path: str, N: int):
+    """The path's K3 launches took the level shape stream_shape gives its
+    stream of N elements, within one wave of K3's lanes."""
+    from msm_blst_tpu_torch.msm import prefix_pipeline, scan
+
+    want = prefix_pipeline.stream_shape(N)
+    print(f"{path}: K3 level shapes {sorted(LEVEL_SHAPES)} (stream of {N})")
+    if LEVEL_SHAPES != {want}:
+        raise AssertionError(f"{path}: K3 ran at {sorted(LEVEL_SHAPES)}, "
+                             f"not {want}")
+    if want[1] > scan.FOLD_WAVE * scan.FOLD_THREADS:
+        raise AssertionError(f"{path}: {want[1]} lanes exceed one wave")
+
+
 def counters():
     """Each kernel, with its launch counter, by the name the JSON line gives
     it."""
@@ -594,6 +707,7 @@ def reset_counts():
     torch.cuda.synchronize()
     for k in counters().values():
         k.launches = 0
+    LEVEL_SHAPES.clear()
 
 
 def read_counts(path: str, names, unused=()) -> dict:
@@ -715,6 +829,7 @@ def phase_main_path(dev, case, mul_impl="cios", seeds=SEEDS):
     launches = read_counts(label, *path_kernels(
         case, ["point_dadd_affine"] + QUERY_KERNELS + ["affine_prefix_level"],
         "prefix", mul_impl))
+    check_level_shapes(label, n * cfg.h)
     per_query(label, case, launches, 1 + len(seeds), built)
     return launches
 
@@ -748,19 +863,20 @@ def phase_algorithms(dev, case, seeds):
         f"{label} plan", *path_kernels(
             case, ["point_dadd_affine", "point_dadd", "point_double"]))}
     stock_seeds = seeds[:max(1, len(seeds) - 1)]
+    # (name, bucket strategy, query, timed seeds, digits a bucket pass)
     queries = [
         ("ches_host_recode", "prefix", lambda s: msm_ches_host_recode(
-            plan, host[s], bucket_impl="prefix"), seeds),
+            plan, host[s], bucket_impl="prefix"), seeds, n * cfg.h),
         ("bgmw_prefix", "prefix", lambda s: msm_bgmw_device(
-            plan, scalars[s], bucket_impl="prefix"), seeds),
+            plan, scalars[s], bucket_impl="prefix"), seeds, n * cfg.h_bgmw),
         ("bgmw_segmented", "segmented", lambda s: msm_bgmw_device(
-            plan, scalars[s], bucket_impl="segmented"), seeds),
+            plan, scalars[s], bucket_impl="segmented"), seeds, None),
         ("stock_prefix", "prefix", lambda s: msm_stock_pippenger(
-            plan, scalars[s], bucket_impl="prefix"), stock_seeds),
+            plan, scalars[s], bucket_impl="prefix"), stock_seeds, n),
         ("stock_segmented", "segmented", lambda s: msm_stock_pippenger(
-            plan, scalars[s], bucket_impl="segmented"), stock_seeds),
+            plan, scalars[s], bucket_impl="segmented"), stock_seeds, None),
     ]
-    for name, impl, query, qseeds in queries:
+    for name, impl, query, qseeds, stream in queries:
         reset_counts()
         check(WARM_SEED, query(WARM_SEED))
         times = []
@@ -777,6 +893,8 @@ def phase_algorithms(dev, case, seeds):
         paths[f"{curve.name}_{name}"] = read_counts(
             f"{label} {name}", *path_kernels(
                 case, QUERY_KERNELS + STRATEGY_KERNELS[impl], impl))
+        if stream is not None:
+            check_level_shapes(f"{label} {name}", stream)
         per_query(f"{label} {name}", case, paths[f"{curve.name}_{name}"],
                   1 + len(qseeds))
     return paths
@@ -845,6 +963,7 @@ def main():
     phase_build()
     paths = phase_drivers(dev)
     results = phase_kernels(dev)
+    spy_level_shapes()
     g1, g2 = CurveCase("G1"), CurveCase("G2")
     paths.update({
         "G1_ches_device": phase_main_path(dev, g1),

@@ -266,6 +266,22 @@ int prefix_scan(const void* x, const void* y, const void* zzz, const void* zz,
   return (int)cudaGetLastError();
 }
 
+// The resident blocks an SM of tile_scan_kernel, tile_up_kernel and
+// tile_down_kernel as built, with their shared memory, into blocks[0..2].
+template <class F>
+int occupancy(int* blocks) {
+  constexpr int bytes = shared_bytes<F>();
+  cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, tile_scan_kernel<F>, THREADS, bytes);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks + 1, tile_up_kernel<F>, THREADS, bytes);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks + 2, tile_down_kernel<F>, THREADS, 0);
+  return (int)rc;
+}
+
 #endif  // __CUDACC__
 
 }  // namespace block_scan

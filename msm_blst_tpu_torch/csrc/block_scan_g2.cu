@@ -15,3 +15,9 @@ extern "C" int msm_g2_xyzz_prefix_scan(const void* x, const void* y,
                                            scratch, n, n_tiles, k, k_carry,
                                            stream);
 }
+
+// The resident blocks an SM of the three kernels as built: tile_scan,
+// tile_up, tile_down.
+extern "C" int msm_g2_xyzz_prefix_scan_occupancy(int* blocks) {
+  return msm::block_scan::occupancy<Fp2>(blocks);
+}

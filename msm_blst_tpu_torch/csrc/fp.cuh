@@ -562,36 +562,6 @@ MSM_HD void double_elem(XyzzCols p1, XyzzColsOut o, int64_t n, int64_t i) {
   store_xyzz(o, r, n, i);
 }
 
-// K3, lane k: inclusive prefix of the signed affine stream down c columns.
-// With W = Words<F>: rows_x/rows_y: (c, n_ch, W) words; signs: (c, n_ch);
-// local: (c, n_ch, 4*W) rows X||Y||ZZZ||ZZ; tails: four [W, n_ch] batches.
-template <class F>
-MSM_HD void affine_prefix_lane(const uint32_t* rows_x, const uint32_t* rows_y,
-                               const int32_t* signs, uint32_t* local,
-                               XyzzColsOut tails, int c, int64_t n_ch,
-                               int64_t k) {
-  constexpr int W = Words<F>::value;
-  XyzzT<F> run;
-  for (int j = 0; j < c; ++j) {
-    int64_t e = (int64_t)j * n_ch + k;
-    AffT<F> pt;
-    load_row(pt.x, rows_x + e * W);
-    load_row(pt.y, rows_y + e * W);
-    bool sub = signs[e] != 0;
-    if (j == 0) {
-      xyzz_from_affine(run, pt, sub);
-    } else {
-      xyzz_dadd_affine(run, run, pt, sub);
-    }
-    uint32_t* row = local + e * (4 * W);
-    store_row(row, run.x);
-    store_row(row + W, run.y);
-    store_row(row + 2 * W, run.zzz);
-    store_row(row + 3 * W, run.zz);
-  }
-  store_xyzz(tails, run, n_ch, k);
-}
-
 // K5, lane k: one level of the segmented bucket reduction down c columns
 // of a key-sorted stream (msm_blst_tpu/msm/pallas_scan.py:149-234). A key
 // change closes the run: the run that touched column 0 becomes the lane's

@@ -11,3 +11,7 @@ extern "C" int msm_affine_prefix_level(const void* rows_x, const void* rows_y,
   return msm::scan::affine_prefix_level<Fp>(rows_x, rows_y, signs, local, tx,
                                             ty, tzzz, tzz, c, n_ch, stream);
 }
+
+extern "C" int msm_affine_prefix_occupancy(int* blocks) {
+  return msm::scan::occupancy<Fp>(blocks);
+}

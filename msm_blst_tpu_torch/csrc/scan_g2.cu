@@ -14,3 +14,7 @@ extern "C" int msm_g2_affine_prefix_level(const void* rows_x,
   return msm::scan::affine_prefix_level<Fp2>(rows_x, rows_y, signs, local, tx,
                                              ty, tzzz, tzz, c, n_ch, stream);
 }
+
+extern "C" int msm_g2_affine_prefix_occupancy(int* blocks) {
+  return msm::scan::occupancy<Fp2>(blocks);
+}

@@ -13,7 +13,8 @@ PyTorch's current stream, raises if the launch failed, and adds one to its
 kernel. The table of them is here, in one place: K1 (`MONT_MUL`), each
 curve's K2-K5 and K9 (`CURVE_KERNELS`), K6's stages (`SOS_MUL`), the
 measurement drivers' K7 (`MADD_CHAIN`, by dtype) and K8 (`GATHER_SMEM`),
-with the name a run reports each under, its C symbol and its source.
+with the name a run reports each under, its C symbol and its source;
+`occupancy` reads K3's and K4's resident blocks an SM.
 """
 
 from __future__ import annotations
@@ -219,6 +220,32 @@ MADD_CHAIN = {dtype: Kernel(f"madd_chain_{dtype}", "madd_chain",
 # K8, the gather from a table held in the shared memory of a 2-CTA cluster
 GATHER_SMEM = Kernel("gather_smem", "gather_smem", "msm_gather_smem",
                      "gather_smem.cu", [_P] * 3 + [_I64, _I64])
+# The occupancy queries of K3 and K4, by op: each writes the resident
+# blocks an SM of the op's kernels as built (K3's one; K4's tile_scan,
+# tile_up and tile_down), into an int array of that length, from the C
+# function msm_[<tag>_]<symbol> in the op's source.
+OCCUPANCY = {"affine_prefix_level": ("affine_prefix_occupancy", 1),
+             "xyzz_prefix_scan": ("xyzz_prefix_scan_occupancy", 3)}
+
+
+def occupancy_symbol(curve: str, op: str) -> str:
+    tag = _CURVE_TAGS[curve]
+    sym = OCCUPANCY[op][0]
+    return f"msm_{tag}_{sym}" if tag else f"msm_{sym}"
+
+
+def occupancy(curve: str, op: str) -> list:
+    """The resident blocks an SM of `curve`'s kernels of `op` (a key of
+    OCCUPANCY), as cudaOccupancyMaxActiveBlocksPerMultiprocessor reports
+    them for the library as built."""
+    out = (ctypes.c_int * OCCUPANCY[op][1])()
+    symbol = occupancy_symbol(curve, op)
+    rc = getattr(load(), symbol)(out)
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {rc}")
+    return list(out)
+
+
 ALL_KERNELS = ([MONT_MUL] + [k for ks in CURVE_KERNELS.values()
                              for k in ks.values()]
                + list(SOS_MUL.values()) + list(MADD_CHAIN.values())
@@ -234,6 +261,11 @@ def load():
             fn = getattr(lib, k.symbol)
             fn.argtypes = k.argtypes + [_P]
             fn.restype = ctypes.c_int
+        for curve in _CURVE_TAGS:
+            for op in OCCUPANCY:
+                fn = getattr(lib, occupancy_symbol(curve, op))
+                fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -13,6 +13,14 @@ and xyzz negation is free (negate Y). Pipeline:
   4. prefix scan over the n_ch chunk tails (K4, the block scan),
   5. per-bucket boundary gathers + bucket-wide dadds (K2).
 
+Steps 3 and 4 are the two levels of one scan, so a query's bucket sums lie
+c + scan_depth(scan_schedule(n_ch)) adds deep; `stream_shape` picks the
+level's (c, n_ch) for the least such depth within one wave of K3's lanes.
+At 1024 elements and more that is not the JAX package's shape (a
+power-of-two lane count of at most 8192, set by its TPU blocks), so the
+local prefixes and tails there are other xyzz words than JAX's and the
+bucket sums the same points; smaller streams keep its shape and words.
+
 Every index the pipeline forms is in range by construction: the stream is
 padded to c*n_ch, positions come from searchsorted and are clamped at 0,
 so nothing relies on JAX's silent clamping of out-of-range gathers.
@@ -20,25 +28,36 @@ so nothing relies on JAX's silent clamping of out-of-range gathers.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..curves.ops import PackedRows32, XyzzPoint
 from ..utils.scans import pick_chunk
-from . import cuda_scan
+from . import cuda_scan, scan
 from .scan import prefix_scan_xyzz
 
 
 def stream_shape(N: int):
-    """(columns, chunks): chunk-contiguous layout, stream pos = k*c + j.
-    Kernel-sized streams take a power-of-two lane count in [128, 8192];
-    small ones the compile-lean scan heuristic (kept from the JAX package
-    so intermediates match)."""
-    if N >= 1024:
-        n_ch = min(8192, max(128, 1 << int(np.floor(np.log2(N // 32)))))
-        return -(-N // n_ch), n_ch
-    c = pick_chunk(N)
-    return c, -(-N // c)
+    """(columns c, lanes n_ch) of the K3 level: stream pos k*c + j goes to
+    lane k, column j. From 1024 elements on, the c of least modelled depth
+    c + scan_depth(scan_schedule(n_ch)), n_ch = ceil(N / c) (K3's c serial
+    adds down a lane, then K4's over the n_ch lane tails), with n_ch
+    within one wave of K3's blocks (scan.FOLD_WAVE blocks of
+    scan.FOLD_THREADS lanes, K4's wave) and c the fewest columns that n_ch
+    lanes need; the fewer lanes on a tie. Smaller streams take the JAX
+    package's pick_chunk columns, so that their words match it."""
+    if N < 1024:
+        c = pick_chunk(N)
+        return c, -(-N // c)
+    best = None  # (depth, n_ch, c)
+    c = -(-N // (scan.FOLD_WAVE * scan.FOLD_THREADS))
+    # K4 is at least one add deep, so no c from best's depth on can win
+    while best is None or c < best[0]:
+        n_ch = -(-N // c)
+        cols = -(-N // n_ch)
+        cand = (cols + scan.scan_depth(scan.scan_schedule(n_ch)), n_ch, cols)
+        best = cand if best is None else min(best, cand)
+        c += 1
+    return best[2], best[1]
 
 
 def column_major_streams(slots_s, signs_s, c: int, n_ch: int):

@@ -1,5 +1,6 @@
-"""Time the whole inclusive xyzz prefix scan, `prefix_scan_xyzz`, of one
-checkout of the port on the card.
+"""Time the whole inclusive xyzz prefix scan, `prefix_scan_xyzz`, and the
+whole prefix-scan bucket accumulation, `prefix_pipeline.bucket_sums_prefix`
+with K3 alone at its level, of one checkout of the port on the card.
 
 Run from the repository root on a machine with a CUDA device:
 
@@ -8,16 +9,32 @@ Run from the repository root on a machine with a CUDA device:
 `--tree` names the root of another checkout whose `msm_blst_tpu_torch` is
 timed instead of this one's, so that two versions are timed by one
 script with one timer: run it once a tree, alternating, in one session on
-one card. The function is looked up in `msm/scan.py` and, for checkouts
-older than the block scan, in `msm/cuda_scan.py` (the column walk with
-its chunk-tail scan and carry). Each call is timed whole, with
+one card. `prefix_scan_xyzz` is looked up in `msm/scan.py` and, for
+checkouts older than the block scan, in `msm/cuda_scan.py` (the column
+walk with its chunk-tail scan and carry). Each call is timed whole, with
 `utils/profiling.device_ms` (CUDA events around back-to-back calls, so
-host issue counts where it is slower than the card), on G1 and G2 at the
-stream lengths of the query paths at n = 2^16: 109,243 (the CHES
-integration's suffix scan), 8,192 (the K3 level's chunk tails), 2,048
-and 64 (stock). The stream is the first N of one 109,243-point xyzz
-batch: doubled lifts of 64 fixed points drawn with a numpy seed. Prints
-the card's name and power limit, one line a length and one JSON object.
+host issue counts where it is slower than the card), on G1 and G2.
+
+* `prefix_scan_xyzz` at the stream lengths of the query paths at n = 2^16:
+  109,243 (the CHES integration's suffix scan), 32,768 and 16,384 (the K3
+  level's lane tails of CHES and BGMW, and of a stock window), 8,192 and
+  2,048 (the tails of the level's earlier shape) and 64 (stock); the
+  stream is the first N of one 109,243-point xyzz batch: doubled lifts of
+  64 fixed points drawn with a numpy seed.
+* `bucket_sums_prefix` (the K3 level, K4 over its lane tails, the bucket
+  boundaries) on the key-sorted digit streams of one recode at
+  params.CONFIGS[16] of scalars from a numpy seed: CHES's 917,504 digits
+  (host recode) over its 109,244 buckets, BGMW95's 983,040 (device recode,
+  the r - a fold) over 65,537, and the first window of stock Pippenger's
+  (window 13) 65,536 over 4,097. The table rows are the 2^16 fixed points'
+  repeated to the table's length (3nh, nh and n rows), so that each slot
+  reads a curve point without a plan build. Beside it, K3 alone
+  (`cuda_scan.affine_prefix_level`) at the level shape the checkout's
+  `prefix_pipeline.stream_shape` gives the stream, on the gathered rows.
+
+Prints the card's name and power limit, the checkout's K3 registers and
+resident blocks (where it reports them), one line a measurement and one
+JSON object.
 """
 
 from __future__ import annotations
@@ -32,9 +49,11 @@ import sys
 import numpy as np
 import torch
 
-LENGTHS = (109243, 8192, 2048, 64)
+LENGTHS = (109243, 32768, 16384, 8192, 2048, 64)
 REPS = 10
 SEED = 0
+N_LOG = 16
+STOCK_WINDOW = 13
 
 
 def _scan_fn(tree: str):
@@ -47,6 +66,59 @@ def _scan_fn(tree: str):
                      "msm/cuda_scan.py")
 
 
+def _streams(dev):
+    """The three digit streams of one recode at CONFIGS[16], key-sorted:
+    {name: (slots, signs, keys, n_buckets, table rows)}."""
+    from msm_blst_tpu_torch.msm import engine, params, recode
+
+    cfg = params.CONFIGS[N_LOG]
+    n = 1 << N_LOG
+    host = recode.random_scalars(n, SEED)
+    scalars = recode.to_device(host, dev)
+    out = {}
+    b, m, s = recode.ches_recode_host(host, cfg.c, cfg.h, cfg.ah)
+    keys = params.bucket_value_to_index(cfg.q, cfg.ah)[b]
+    slots = engine.ches_slots(np.arange(n)[:, None], np.arange(cfg.h)[None, :],
+                              m - 1, cfg.h)
+    out["ches"] = (torch.as_tensor(slots.reshape(-1), device=dev),
+                   torch.as_tensor(s.reshape(-1), device=dev),
+                   torch.as_tensor(keys.reshape(-1), device=dev),
+                   cfg.b_size, 3 * n * cfg.h)
+    sc = recode.reduce_mod_r_device(scalars)
+    sc, flip = recode.fold_r_minus_a_device(sc)
+    absd, sign = recode.signed_digits_device(sc, cfg.c_bgmw, cfg.h_bgmw)
+    sign = sign ^ flip[None, :]
+    i_idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    j_idx = torch.arange(cfg.h_bgmw, dtype=torch.int32, device=dev)[:, None]
+    out["bgmw"] = (engine.bgmw_slots(i_idx, j_idx, cfg.h_bgmw).reshape(-1),
+                   sign.reshape(-1), absd.reshape(-1),
+                   (cfg.q_bgmw >> 1) + 1, n * cfg.h_bgmw)
+    h = -(-256 // STOCK_WINDOW)
+    absd, sign = recode.signed_digits_device(scalars, STOCK_WINDOW, h)
+    out["stock"] = (torch.arange(n, dtype=torch.int32, device=dev), sign[0],
+                    absd[0], (1 << (STOCK_WINDOW - 1)) + 1, n)
+    sorted_streams = {}
+    for name, (slots, signs, keys, n_buckets, rows) in out.items():
+        keys_s, perm = torch.sort(keys.to(torch.int32), stable=True)
+        sorted_streams[name] = (slots.to(torch.int32)[perm],
+                                signs.to(torch.bool)[perm], keys_s,
+                                n_buckets, rows)
+    return sorted_streams
+
+
+def _k3_report():
+    """The checkout's K3 registers (ptxas) and resident blocks an SM."""
+    from msm_blst_tpu_torch import kernels
+
+    out = {name: regs for name, regs in kernels.ptxas_summary().items()
+           if name.split()[0] in ("scan.cu", "scan_g2.cu")}
+    if hasattr(kernels, "occupancy"):
+        for curve in kernels.CURVE_KERNELS:
+            for op in kernels.OCCUPANCY:
+                out[f"occupancy {curve} {op}"] = kernels.occupancy(curve, op)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(
@@ -56,8 +128,9 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("scan_timing.py needs a CUDA device")
     where, prefix_scan_xyzz = _scan_fn(args.tree)
-    from msm_blst_tpu_torch.curves import G1, G2, XyzzPoint
-    from msm_blst_tpu_torch.msm import fixed_point_list
+    from msm_blst_tpu_torch.curves import G1, G2, PackedRows32, XyzzPoint
+    from msm_blst_tpu_torch.msm import (cuda_scan, fixed_point_list,
+                                        prefix_pipeline)
     from msm_blst_tpu_torch.utils.profiling import device_ms
 
     card = subprocess.run(
@@ -66,10 +139,16 @@ def main():
     print(card.strip())
     print(f"tree {os.path.abspath(args.tree)}: {where}.prefix_scan_xyzz")
     dev = torch.device("cuda", 0)
+    k3 = _k3_report()
+    for name, v in k3.items():
+        print(f"K3/K4 {name}: {v}")
     rng = np.random.default_rng(SEED)
     report = {"tree": os.path.abspath(args.tree), "module": where,
-              "card": card.strip(), "ms": {}}
+              "card": card.strip(), "k3": k3, "ms": {}, "bucket_sums_ms": {},
+              "k3_ms": {}}
+    streams = _streams(dev)
     for curve in (G1, G2):
+        fixed = fixed_point_list(curve, 1 << N_LOG, device=dev)
         base = curve.xyzz_double(curve.xyzz_from_affine(
             fixed_point_list(curve, 64, device=dev)))
         idx = torch.as_tensor(rng.integers(0, 64, max(LENGTHS)), device=dev)
@@ -80,6 +159,29 @@ def main():
             report["ms"][f"{curve.name} {N}"] = ms
             print(f"{curve.name} N={N}: {ms:.4f} ms a call (device_ms, "
                   f"{REPS} calls)")
+        rows = curve.to_rows32(fixed).XY
+        for name, (slots, signs, keys, n_buckets, n_rows) in streams.items():
+            table = PackedRows32(rows.repeat(-(-n_rows // rows.shape[0]),
+                                             1)[:n_rows].contiguous())
+            N = keys.shape[0]
+            ms = device_ms(lambda: prefix_pipeline.bucket_sums_prefix(
+                curve, table, slots, signs, keys, n_buckets), REPS)
+            c, n_ch = prefix_pipeline.stream_shape(N)
+            slots_cm, signs_cm = prefix_pipeline.column_major_streams(
+                slots, signs, c, n_ch)
+            rx, ry = prefix_pipeline.gather_rows(curve, table, slots_cm, c,
+                                                 n_ch)
+            sg = signs_cm.reshape(c, n_ch)
+            k3_ms = device_ms(lambda: cuda_scan.affine_prefix_level(
+                curve, rx, ry, sg), REPS)
+            key = f"{curve.name} {name} {N}"
+            report["bucket_sums_ms"][key] = ms
+            report["k3_ms"][key] = {"c": c, "n_ch": n_ch, "ms": k3_ms}
+            print(f"{curve.name} {name} N={N} ({n_buckets} buckets): "
+                  f"bucket_sums_prefix {ms:.4f} ms a call; K3 alone at "
+                  f"(c, n_ch)=({c}, {n_ch}) {k3_ms:.4f} ms (device_ms, "
+                  f"{REPS} calls)")
+            del table, rx, ry
     print(json.dumps(report))
     if args.out:
         with open(args.out, "w") as f:

@@ -263,7 +263,7 @@ def test_scan_schedule_at_the_ches_configs(n_log):
     """Tiles within one wave cover [0, N) once, in order, none empty; the
     carry pass's block holds every tile total; no k gives less depth.
     CONFIGS[16]: the suffix scan takes k = 4 and 214 tiles (25 adds deep),
-    the 8,192 tails k = 1 and 64 tiles (17 adds)."""
+    the level's 32,768 tails k = 1 and 256 tiles (19 adds)."""
     T = scan.FOLD_THREADS
     for N in _ches_scans(n_log):
         s = scan.scan_schedule(N)
@@ -277,11 +277,11 @@ def test_scan_schedule_at_the_ches_configs(n_log):
         assert scan.scan_depth(s) == min(depths)
     if n_log == 16:
         suffix, tails = _ches_scans(16)
-        assert (suffix, tails) == (109243, 8192)
+        assert (suffix, tails) == (109243, 32768)
         assert scan.scan_schedule(suffix) == scan.ScanSchedule(4, 214, 2)
         assert scan.scan_depth(scan.scan_schedule(suffix)) == 25
-        assert scan.scan_schedule(tails) == scan.ScanSchedule(1, 64, 1)
-        assert scan.scan_depth(scan.scan_schedule(tails)) == 17
+        assert scan.scan_schedule(tails) == scan.ScanSchedule(1, 256, 2)
+        assert scan.scan_depth(scan.scan_schedule(tails)) == 19
 
 
 def test_suffix_scan_over_a_batch(stream):

@@ -92,22 +92,43 @@ def test_point_kernels_match_plain(dev, name):
 
 
 @pytest.mark.parametrize("name", CURVES)
-def test_scan_kernels_match_plain(dev, name):
+@pytest.mark.parametrize("c, n_ch", [(7, 256), (5, 1000), (28, 32768)])
+def test_scan_kernels_match_plain(dev, name, c, n_ch):
+    """K3 against its plain version word for word: 7 columns of two
+    blocks, a ragged shape (1,000 lanes, not a multiple of the block) and
+    the CHES level's (28 columns over 32,768 lanes), lane 0 running P, 2P,
+    P, infinity."""
     from msm_blst_tpu_torch.msm import cuda_scan
 
     curve = _curve(name)
     W = curve.F.n_words
-    c, n_ch = 7, 256
     rows = curve.to_rows32(_points(32, dev, name)).XY
     rng = np.random.default_rng(2)
-    g = rows[torch.as_tensor(rng.integers(0, 32, size=c * n_ch), device=dev)]
+    slots = torch.as_tensor(rng.integers(0, 32, size=c * n_ch), device=dev)
+    slots[torch.arange(4, device=dev) * n_ch] = 7
+    g = rows.index_select(0, slots)
     rx = g[:, :W].reshape(c, n_ch, W).contiguous()
     ry = g[:, W:].reshape(c, n_ch, W).contiguous()
     sg = torch.as_tensor(rng.integers(0, 2, size=(c, n_ch)), device=dev)
+    sg[:2, 0] = 0
+    sg[2:4, 0] = 1
     local, tails = cuda_scan.affine_prefix_level(curve, rx, ry, sg)
     wl, wt = cuda_scan.affine_prefix_level_plain(curve, rx, ry, sg)
     assert torch.equal(local, wl)
     assert all(torch.equal(a, b) for a, b in zip(tails, wt))
+    assert not bool(local[3, 0, 2 * W:].any())  # P + P - P - P: ZZZ = ZZ = 0
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_level_kernels_fill_the_wave(dev, name):
+    """K3 and K4's three kernels as built keep as many blocks resident an
+    SM as the wave the host schedules for (msm/scan.py FOLD_WAVE)."""
+    from msm_blst_tpu_torch import kernels
+    from msm_blst_tpu_torch.msm import scan
+
+    per_sm = scan.FOLD_WAVE // 132
+    assert kernels.occupancy(name, "affine_prefix_level")[0] >= per_sm
+    assert min(kernels.occupancy(name, "xyzz_prefix_scan")) >= per_sm
 
 
 @pytest.mark.parametrize("name", CURVES)

@@ -117,6 +117,16 @@ def test_kernel_table_matches_its_source(name):
     assert k.argtypes == want
 
 
+@pytest.mark.parametrize("curve", sorted(kernels.CURVE_KERNELS))
+@pytest.mark.parametrize("op", sorted(kernels.OCCUPANCY))
+def test_occupancy_query_is_in_its_source(curve, op):
+    """Each occupancy query kernels.occupancy binds is defined in the
+    source of the kernels it reports on, taking the int array it fills."""
+    src = (kernels.CSRC / kernels.CURVE_KERNELS[curve][op].source).read_text()
+    symbol = kernels.occupancy_symbol(curve, op)
+    assert f'extern "C" int {symbol}(int* blocks)' in src
+
+
 @pytest.mark.parametrize("symbol, name", [
     ("_ZN12_GLOBAL__N_111dadd_kernelIN3msm2FpEEEvPT_", "dadd_kernel"),
     ("_ZN12_GLOBAL__N_114sos_mul_kernelILi3EEEvPKjS2_PjS2_l",
