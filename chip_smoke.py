@@ -27,7 +27,9 @@ Phases, each reported on its own lines:
      fold) on the CHES integration's six gap groups and K4 (the block scan)
      at the stream lengths of the query paths (109,243, 32,768, 16,384, 64)
      and at 8,192 and 2,048, each with the depth of its longest chain of
-     adds beside a one-lane K2 add's time;
+     adds beside a one-lane K2 add's time; K8 and torch.take also under a
+     CUDA graph of 20 calls (the kernels without the host's launch work), beside
+     K8's cluster size and the clusters of it the card keeps resident;
   5. main path: the G1 CHES n=2^16 query (params.CONFIGS[16]) — fixed
      points, the plan, one warm-up and five timed scalar sets — with every
      result checked against the pure-Python oracle and every kernel of the
@@ -305,6 +307,34 @@ def driver_kernels(dev, record):
            lambda: gather_bench.gather_plain(d["table"], d["idx"]), 20, 5,
            4 * (T + 2 * N),
            library_fn=lambda: torch.take(d["table"], d["idx64"]))
+    gather_timers(d)
+
+
+def gather_timers(d):
+    """K8 beside torch.take on the gather bench's data under both timers:
+    `device_ms` (the kernel table's; the host's launch work counts where it is
+    the slower) and `graph_ms` (a CUDA graph of 20 calls: the kernels
+    alone), with K8's cluster size and the clusters of it the card keeps
+    resident (cudaOccupancyMaxActiveClusters). Fails if the card cannot
+    launch K8 at its cluster size or K8 differs from torch.take."""
+    from msm_blst_tpu_torch.drivers import gather_bench
+    from msm_blst_tpu_torch.utils.profiling import device_ms, graph_ms
+
+    table, idx, idx64 = d["table"], d["idx"], d["idx64"]
+    cluster = gather_bench.CLUSTER
+    resident = gather_bench.cluster_capacity(table.numel())
+    if resident < 1:
+        raise AssertionError(f"gather_smem: the card holds no cluster of "
+                             f"{cluster} CTAs")
+    fns = {"gather_smem": lambda: gather_bench.gather_smem(table, idx),
+           "torch.take": lambda: torch.take(table, idx64)}
+    if not torch.equal(fns["gather_smem"](), fns["torch.take"]()):
+        raise AssertionError("gather_smem differs from torch.take")
+    times = {name: (device_ms(fn, 20), graph_ms(fn)) for name, fn in fns.items()}
+    print(f"kernel gather_smem timers: cluster {cluster}, {resident} clusters "
+          "resident; " + "; ".join(
+              f"{name} device_ms {dm:.5f} ms, graph {gm:.5f} ms"
+              for name, (dm, gm) in times.items()))
 
 
 def curve_kernels(dev, case, record):

@@ -6,8 +6,9 @@ held on chip.
   t1d_sort   the same, ascending indices
   row96      affine row gather (N, 24) words (index_select), 96 B rows
   row_pair   the same with X||Y packed in one (N, 48) row, 192 B rows
-  kern_smem  K8 (csrc/gather_smem.cu): the table in the distributed
-             shared memory of 2-CTA clusters; must equal t1d
+  kern_smem  K8 (csrc/gather_smem.cu): the table split over the
+             distributed shared memory of 2-CTA clusters, filled by TMA;
+             must equal t1d
 
 Prints one JSON line per row (CUDA events; the host's clock with --device
 cpu). Run:
@@ -18,18 +19,24 @@ cpu). Run:
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 
 import numpy as np
 import torch
 
 from ..device import resolve
-from ..kernels import GATHER_SMEM, on_cpu, ptr
+from ..kernels import GATHER_SMEM, load, on_cpu
 from ..utils.profiling import device_name, time_ms
 
 T, N = 65537, 1 << 19
-# the largest table two CTAs hold: 2 x 227 KB of int32
-MAX_TABLE = 2 * 232448 // 4
+# K8's cluster: the CTAs that split the table between them. Wider clusters
+# copy less of the table in but cost more in lookups (PERF.md §6)
+CLUSTER = 2
+# the entries one CTA holds: 227 KB of shared memory less 16 B for the
+# fill's mbarrier, in whole 16-byte steps
+SLICE_MAX = (232448 - 16) // 16 * 4
+MAX_TABLE = CLUSTER * SLICE_MAX
 
 
 def gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -37,21 +44,43 @@ def gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, idx.to(torch.int64))
 
 
+def cluster_capacity(T: int) -> int:
+    """The clusters of K8 the card keeps resident at once for a table of T
+    entries (cudaOccupancyMaxActiveClusters; 0: it cannot launch them)."""
+    n = ctypes.c_int()
+    rc = load().msm_gather_smem_clusters(T, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"msm_gather_smem_clusters: CUDA error {rc}")
+    return n.value
+
+
 def gather_smem(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K8 for CUDA tensors (int32 1-D, idx in [0, len(table))), the plain
-    version for CPU tensors."""
+    version for CPU tensors. A view that does not start on 16 bytes (the
+    bulk copy's and the int4 loads' step) is copied to one that does
+    first. A table above MAX_TABLE, or a failed launch, raises."""
     if on_cpu(table, idx):
         return gather_plain(table, idx)
-    for t in (table, idx):
-        if (t.device.type != "cuda" or t.dtype != torch.int32 or t.ndim != 1
-                or not t.is_contiguous() or t.device != table.device):
-            raise ValueError(f"{GATHER_SMEM.symbol}: expected contiguous "
-                             "1-D int32 CUDA tensors on one device")
-    if table.numel() > MAX_TABLE:
-        raise ValueError(f"{GATHER_SMEM.symbol}: table of {table.numel()} "
-                         f"entries, at most {MAX_TABLE}")
+    if not (table.is_cuda and idx.device == table.device
+            and table.dtype == idx.dtype == torch.int32
+            and table.dim() == idx.dim() == 1
+            and table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError(f"{GATHER_SMEM.symbol}: expected contiguous "
+                         "1-D int32 CUDA tensors on one device")
+    T, n = table.numel(), idx.numel()
+    if T > MAX_TABLE:
+        raise ValueError(f"{GATHER_SMEM.symbol}: table of {T} entries, at "
+                         f"most {MAX_TABLE}")
+    tp, ip = table.data_ptr(), idx.data_ptr()
+    if tp & 15:
+        table = table.clone()
+        tp = table.data_ptr()
+    if ip & 15:
+        idx = idx.clone()
+        ip = idx.data_ptr()
     out = torch.empty_like(idx)
-    GATHER_SMEM(ptr(table), ptr(idx), ptr(out), table.numel(), idx.numel())
+    if n:
+        GATHER_SMEM(tp, ip, out.data_ptr(), T, n)
     return out
 
 

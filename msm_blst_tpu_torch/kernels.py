@@ -14,7 +14,8 @@ kernel. The table of them is here, in one place: K1 (`MONT_MUL`), each
 curve's K2-K5 and K9 (`CURVE_KERNELS`), K6's stages (`SOS_MUL`), the
 measurement drivers' K7 (`MADD_CHAIN`, by dtype) and K8 (`GATHER_SMEM`),
 with the name a run reports each under, its C symbol and its source;
-`occupancy` reads K3's and K4's resident blocks an SM.
+`occupancy` reads K3's and K4's resident blocks an SM (K8's cluster
+capacity: `drivers/gather_bench.py` `cluster_capacity`).
 """
 
 from __future__ import annotations
@@ -217,7 +218,8 @@ MADD_CHAIN = {dtype: Kernel(f"madd_chain_{dtype}", "madd_chain",
                             [_P] * 3 + [_I64, _I64])
               for dtype, tag in (("uint32", "u32"), ("int32", "i32"),
                                  ("float32", "f32"))}
-# K8, the gather from a table held in the shared memory of a 2-CTA cluster
+# K8, the gather from a table split over the shared memory of a 2-CTA
+# cluster: table, idx, out, T, N
 GATHER_SMEM = Kernel("gather_smem", "gather_smem", "msm_gather_smem",
                      "gather_smem.cu", [_P] * 3 + [_I64, _I64])
 # The occupancy queries of K3 and K4, by op: each writes the resident
@@ -266,6 +268,10 @@ def load():
                 fn = getattr(lib, occupancy_symbol(curve, op))
                 fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
                 fn.restype = ctypes.c_int
+        # K8's cluster capacity (drivers/gather_bench.py cluster_capacity)
+        lib.msm_gather_smem_clusters.argtypes = [
+            _I64, ctypes.POINTER(ctypes.c_int)]
+        lib.msm_gather_smem_clusters.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -5,7 +5,10 @@ msm_blst_tpu/utils/profiling.py).
   (`torch.cuda.synchronize()`) when it opens and when it closes.
 * `trace(path)`: a `torch.profiler` trace around a block, written as a
   Chrome trace (chrome://tracing, Perfetto).
-* `device_ms(fn)`: a call's mean time, by CUDA events on the card.
+* `device_ms(fn)`: a call's mean time, by CUDA events on the card around
+  back-to-back calls (the host's launch work counts where it is the
+  slower);
+  `graph_ms(fn)` the same over a CUDA graph of the calls, without it.
 * The op-count models per algorithm and `report(...)`, which turns a
   measured wall time into Fp multiplies a second and, given the device's
   measured multiply rate (drivers/microbench.py `fp_mont_mul_per_s`), the
@@ -75,6 +78,29 @@ def device_ms(fn, reps: int = 10, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Mean milliseconds per call of `fn` on the card without the host's
+    launch work: `calls` calls captured in one CUDA graph (after one warm-up
+    call), replayed `replays` times between CUDA events (one replay first,
+    untimed). The gaps between the graph's kernels count."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def host_ms(fn, reps: int = 10, warmup: int = 1) -> float:

@@ -42,12 +42,11 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
-import os
-import subprocess
-import sys
 
 import numpy as np
 import torch
+
+from timing_tools import ROOT, card, use_tree
 
 LENGTHS = (109243, 32768, 16384, 8192, 2048, 64)
 REPS = 10
@@ -57,7 +56,6 @@ STOCK_WINDOW = 13
 
 
 def _scan_fn(tree: str):
-    sys.path.insert(0, os.path.abspath(tree))
     for mod in ("scan", "cuda_scan"):
         m = importlib.import_module(f"msm_blst_tpu_torch.msm.{mod}")
         if hasattr(m, "prefix_scan_xyzz"):
@@ -121,30 +119,28 @@ def _k3_report():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tree", default=os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("scan_timing.py needs a CUDA device")
-    where, prefix_scan_xyzz = _scan_fn(args.tree)
+    tree = use_tree(args.tree)
+    where, prefix_scan_xyzz = _scan_fn(tree)
     from msm_blst_tpu_torch.curves import G1, G2, PackedRows32, XyzzPoint
     from msm_blst_tpu_torch.msm import (cuda_scan, fixed_point_list,
                                         prefix_pipeline)
     from msm_blst_tpu_torch.utils.profiling import device_ms
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(card.strip())
-    print(f"tree {os.path.abspath(args.tree)}: {where}.prefix_scan_xyzz")
+    smi = card()
+    print(smi)
+    print(f"tree {tree}: {where}.prefix_scan_xyzz")
     dev = torch.device("cuda", 0)
     k3 = _k3_report()
     for name, v in k3.items():
         print(f"K3/K4 {name}: {v}")
     rng = np.random.default_rng(SEED)
-    report = {"tree": os.path.abspath(args.tree), "module": where,
-              "card": card.strip(), "k3": k3, "ms": {}, "bucket_sums_ms": {},
+    report = {"tree": tree, "module": where,
+              "card": smi, "k3": k3, "ms": {}, "bucket_sums_ms": {},
               "k3_ms": {}}
     streams = _streams(dev)
     for curve in (G1, G2):

@@ -21,22 +21,17 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
-import sys
 import time
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from timing_tools import card, device_us, use_tree
+
+use_tree()
 
 TOP = 6
-
-
-def _device_us(evt) -> float:
-    return getattr(evt, "self_device_time_total",
-                   getattr(evt, "self_cuda_time_total", 0.0))
 
 
 def profile_query(fn) -> dict:
@@ -48,14 +43,14 @@ def profile_query(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=_device_us, reverse=True)[:TOP]
+               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=device_us, reverse=True)[:TOP]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": 1.0 - device_ms / wall_ms,
             "launches": sum(e.count for e in kernels),
             "top": [{"kernel": e.key[:80], "count": e.count,
-                     "device_ms": _device_us(e) / 1e3} for e in top]}
+                     "device_ms": device_us(e) / 1e3} for e in top]}
 
 
 def main():
@@ -67,9 +62,7 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: torch sees no CUDA device")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
+    print(card())
 
     from msm_blst_tpu_torch import curves
     from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a card, G1 and G2 instances: each against its
 plain version, and the CHES, host-recode CHES, BGMW95 and stock queries
 against the oracle; K6 (the SOS multiply) at every stage and the CHES
-query on it, and the drivers' K7 and K8.
+query on it, and the drivers' K7 and K8 (K8 against torch.take at table
+and index sizes, index patterns and unaligned views).
 Every test carries the `gpu` marker and takes the `dev` fixture, which
 skips it without a CUDA device. On a machine with one:
 
@@ -284,6 +285,89 @@ def test_gather_smem_kernel_matches_take(dev):
     d = gather_bench.inputs(65537, 1 << 14, dev)
     got = gather_bench.gather_smem(d["table"], d["idx"])
     assert torch.equal(got, torch.take(d["table"], d["idx64"]))
+
+
+def _gather_case(T, N, seed, dev):
+    rng = np.random.default_rng(seed)
+    table = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, size=T,
+                                         dtype=np.int64).astype(np.int32),
+                            device=dev)
+    idx = torch.as_tensor(rng.integers(0, T, size=N).astype(np.int32),
+                          device=dev)
+    return table, idx
+
+
+@pytest.mark.parametrize("N", [1, 3, 1023, (1 << 14) + 3, 1 << 19])
+@pytest.mark.parametrize("T", [1, 5, 4097, 65537, "max"])
+def test_gather_smem_shapes_match_take(dev, T, N):
+    """K8 equals torch.take word for word, from a one-entry table to the
+    most a 2-CTA cluster holds, with N on and off the kernel's four-index
+    steps."""
+    from msm_blst_tpu_torch.drivers import gather_bench
+    from msm_blst_tpu_torch.kernels import GATHER_SMEM
+
+    T = gather_bench.MAX_TABLE if T == "max" else T
+    table, idx = _gather_case(T, N, T + N, dev)
+    before = GATHER_SMEM.launches
+    got = gather_bench.gather_smem(table, idx)
+    assert GATHER_SMEM.launches == before + 1
+    assert torch.equal(got, torch.take(table, idx.to(torch.int64)))
+
+
+@pytest.mark.parametrize("pattern", ["first", "last", "sorted", "bench"])
+def test_gather_smem_index_patterns(dev, pattern):
+    """K8 on the gather bench's table (T = 65,537, N = 2^19): indices all in
+    CTA 0's slice, all in CTA 1's (the plain-loaded tail included), sorted,
+    and the bench's own."""
+    from msm_blst_tpu_torch.drivers import gather_bench
+
+    d = gather_bench.inputs(device=dev)
+    table, idx = d["table"], d["idx"]
+    T, N = table.numel(), idx.numel()
+    slice_ = -(-T // 8) * 4  # CTA 0 holds [0, slice_), CTA 1 the rest
+    rng = np.random.default_rng(2)
+    if pattern == "first":
+        idx = torch.as_tensor(rng.integers(0, slice_, size=N).astype(
+            np.int32), device=dev)
+    elif pattern == "last":
+        idx = torch.as_tensor(rng.integers(slice_, T, size=N).astype(
+            np.int32), device=dev)
+        idx[-4:] = T - 1
+    elif pattern == "sorted":
+        idx = torch.sort(idx).values
+    assert gather_bench.cluster_capacity(T) >= 1
+    got = gather_bench.gather_smem(table, idx)
+    assert torch.equal(got, torch.take(table, idx.to(torch.int64)))
+
+
+def test_gather_smem_refuses(dev):
+    """No fallback: a table above what the cluster holds raises, and
+    launches nothing."""
+    from msm_blst_tpu_torch.drivers import gather_bench
+    from msm_blst_tpu_torch.kernels import GATHER_SMEM
+
+    table, idx = _gather_case(gather_bench.MAX_TABLE + 1, 1024, 3, dev)
+    before = GATHER_SMEM.launches
+    with pytest.raises(ValueError):
+        gather_bench.gather_smem(table, idx)
+    assert GATHER_SMEM.launches == before
+
+
+@pytest.mark.parametrize("head", [1, 2, 3])
+def test_gather_smem_unaligned_views(dev, head):
+    """Views that start off the kernel's 16-byte step (the table, the
+    indices, or both) still give torch.take's words through K8."""
+    from msm_blst_tpu_torch.drivers import gather_bench
+    from msm_blst_tpu_torch.kernels import GATHER_SMEM
+
+    table, idx = _gather_case(4097 + head, 1023 + head, head, dev)
+    idx = idx % 4097
+    before = GATHER_SMEM.launches
+    for t, i in ((table[head:], idx), (table, idx[head:]),
+                 (table[head:], idx[head:])):
+        got = gather_bench.gather_smem(t, i)
+        assert torch.equal(got, torch.take(t, i.to(torch.int64)))
+    assert GATHER_SMEM.launches == before + 3
 
 
 @pytest.mark.parametrize("name", CURVES)

@@ -10,7 +10,8 @@
   exact; against numpy's two roundings a step (the body as written) the
   chain agrees to a relative 1e-5 (at most one float32 ulp, 6e-8, a step
   over 32 steps).
-* K8's plain gather equals numpy's take.
+* K8's plain gather equals numpy's take, through K8's wrapper too (which
+  takes it on CPU tensors); MAX_TABLE fits the kernel's 2-CTA split.
 * utils/profiling.py's op counts and report equal msm_blst_tpu's for
   CONFIGS[16].
 * Each driver runs end to end at tiny sizes on the CPU, its checks
@@ -85,6 +86,40 @@ def test_gather_plain_matches_numpy_take():
     want = np.take(d["table"].numpy(), d["idx"].numpy())
     assert np.array_equal(got.numpy(), want)
     assert torch.equal(torch.take(d["table"], d["idx64"]), got)
+
+
+@pytest.mark.parametrize("N", [1, 3, 1023, (1 << 14) + 3])
+@pytest.mark.parametrize("T", [1, 5, 4097, 65537, gather_bench.MAX_TABLE])
+def test_gather_smem_on_cpu_matches_numpy_take(T, N):
+    """On CPU tensors K8's wrapper takes the plain gather: numpy's take at
+    the card tests' shapes, on whole tensors and on views that start off
+    16 bytes."""
+    rng = np.random.default_rng(T + N)
+    table = rng.integers(-(1 << 31), 1 << 31, size=T + 1,
+                         dtype=np.int64).astype(np.int32)
+    idx = rng.integers(0, T, size=N + 1).astype(np.int32)
+    t, i = torch.as_tensor(table), torch.as_tensor(idx)
+    for tt, ii, want in ((t[:T], i[:N], table[:T][idx[:N]]),
+                         (t[1:], i[1:], table[1:][idx[1:]])):
+        got = gather_bench.gather_smem(tt, ii)
+        assert got.dtype == torch.int32 and got.shape == (N,)
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_gather_max_table_fits_the_cluster():
+    """MAX_TABLE is the largest table whose slices the kernel's rule (CTA 0
+    holds 4 * ceil(T / 8) entries, a multiple of the bulk copy's 4) fits in
+    one CTA's shared memory each."""
+    def slice_of(T):
+        return -(-T // 8) * 4
+
+    M = gather_bench.MAX_TABLE
+    assert gather_bench.CLUSTER == 2 and M == 2 * gather_bench.SLICE_MAX
+    assert slice_of(M) <= gather_bench.SLICE_MAX < slice_of(M + 1)
+    assert gather_bench.SLICE_MAX % 4 == 0
+    assert 4 * gather_bench.SLICE_MAX + 16 <= 232448  # 227 KB a CTA
+    for T in (1, 5, 4097, 65537, M):  # the least multiple of 4 >= T / 2
+        assert T <= 2 * slice_of(T) < T + 8
 
 
 @pytest.mark.parametrize("algo", ["ches", "bgmw", "stock"])
