@@ -7,10 +7,11 @@ Phases, each reported on its own lines:
      clock, torch, CUDA and nvcc versions; stops unless torch sees a CUDA
      device;
   2. build: compiles msm_blst_tpu_torch/csrc/*.cu (one nvcc per source, in
-     parallel) and reports the time and each kernel's registers and spills;
-     K3's and K4's kernels must keep FOLD_WAVE // 132 blocks resident an SM
-     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the wave the host
-     schedules their launches for;
+     parallel) and reports the time, each nvcc's, and each kernel's
+     registers and spills; K3's and K4's kernels must keep FOLD_WAVE // 132
+     blocks resident an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+     the wave the host schedules their launches for, and K2's wide kernels
+     the blocks their launch bounds ask for (kernels.point_min_blocks());
   3. drivers: the three measurement drivers of the port (microbench,
      mxu_experiment, gather_bench) at the JAX drivers' shapes, each
      printing its JSON lines and counting its launches on its own; the
@@ -27,7 +28,11 @@ Phases, each reported on its own lines:
      fold) on the CHES integration's six gap groups and K4 (the block scan)
      at the stream lengths of the query paths (109,243, 32,768, 16,384, 64)
      and at 8,192 and 2,048, each with the depth of its longest chain of
-     adds beside a one-lane K2 add's time; K8 and torch.take also under a
+     adds beside one add's time on fp.cuh's product (the one K3, K4 and K9
+     run; K2's runs on carry chains); K2's two launches of the CHES query
+     on their real inputs: the bucket boundaries of a CONFIGS[16] recode
+     (109,244 buckets) and the Horner combine of the six gap groups K9
+     folded; K8 and torch.take also under a
      CUDA graph of 20 calls (the kernels without the host's launch work), beside
      K8's cluster size and the clusters of it the card keeps resident;
   5. main path: the G1 CHES n=2^16 query (params.CONFIGS[16]) — fixed
@@ -44,7 +49,9 @@ Phases, each reported on its own lines:
      launches on their own: every kernel of the path (K5's two variants on
      the segmented ones, K9 on all) launched, none of the other strategy's,
      K3 (prefix paths) at stream_shape's level shapes; each query path
-     prints its K2 dadd, K9 and K4 launches a query;
+     prints its K2 dadd, K9 and K4 launches a query, and those of K2's
+     boundary and Horner launches; a CHES path launches each of these once
+     a query and no K2 dadd or double of its own;
   7. g2: phases 5 and 6 over G2 at the same n and config (the SOS query
      on two scalar sets), each path launching the G2 kernels (and K1 or
      K6, which Fp2's products run through) and none of the G1 point and
@@ -176,6 +183,8 @@ def phase_build():
     kernels.load()
     print(f"build: {time.perf_counter() - t0:.3f} s "
           f"({kernels.library_path().name})")
+    print("nvcc: " + ", ".join(f"{src} {sec:.1f} s" for src, sec in
+                               sorted(kernels.nvcc_seconds().items())))
     for name, regs in sorted(kernels.ptxas_summary().items()):
         print(f"ptxas {name}: {regs}")
     check_occupancy()
@@ -183,19 +192,22 @@ def phase_build():
 
 def check_occupancy():
     """K3's and K4's kernels must keep the resident blocks an SM that the
-    host's wave (msm/scan.py FOLD_WAVE blocks on 132 SMs) counts on."""
+    host's wave (msm/scan.py FOLD_WAVE blocks on 132 SMs) counts on, K2's
+    wide kernels the blocks their launch bounds ask for."""
     from msm_blst_tpu_torch import kernels
     from msm_blst_tpu_torch.msm import scan
 
-    per_sm = scan.FOLD_WAVE // SMS
     for curve in kernels.CURVE_KERNELS:
         for op in kernels.OCCUPANCY:
+            per_sm, why = ((kernels.point_min_blocks(), "the launch bounds ask")
+                           if op.startswith("point") else
+                           (scan.FOLD_WAVE // SMS, "the wave needs"))
             blocks = kernels.occupancy(curve, op)
             print(f"occupancy {kernels.CURVE_KERNELS[curve][op].name}: "
-                  f"{blocks} resident blocks an SM (the wave needs {per_sm})")
+                  f"{blocks} resident blocks an SM ({why} {per_sm})")
             if min(blocks) < per_sm:
                 raise AssertionError(f"{curve} {op}: {blocks} blocks an SM, "
-                                     f"below the wave's {per_sm}")
+                                     f"below {per_sm}")
 
 
 def _random_fp(n: int, seed: int, dev) -> torch.Tensor:
@@ -348,16 +360,10 @@ def curve_kernels(dev, case, record):
     curve, E = case.curve, case.elem_bytes
     W = curve.F.n_words
 
-    # K2 on 2^16 lanes: lane 0 infinity, lane 1 P+P, lane 2 P-P
+    # K2 on 2^16 lanes
     B = 1 << 16
     pts = fixed_point_list(curve, B, device=dev)
-    lane = torch.arange(B, device=dev)
-    base = curve.xyzz_from_affine(pts)
-    acc = curve.xyzz_double(base)
-    acc = curve.select(lane == 0, curve.xyzz_inf((B,), dev), acc)
-    acc = curve.select((lane == 1) | (lane == 2), base, acc)
-    signs = (lane % 3 == 2)
-    other = curve.xyzz_from_affine(pts, negate=signs)
+    acc, other, signs = k2_lanes(curve, pts)
     record(case.name("point_dadd_affine"),
            lambda: tuple(cuda_point.xyzz_dadd_affine(curve, acc, pts, signs)),
            lambda: tuple(cuda_point.xyzz_dadd_affine_plain(curve, acc, pts,
@@ -379,12 +385,32 @@ def curve_kernels(dev, case, record):
     local = local.reshape(-1, 4, W)
     scan_kernel(dev, case, record, local[:109243])
 
-    # K9 on the integration's gap groups, over K3's local prefixes
-    fold_kernel(dev, case, record, local[:109243])
+    # K9 on the integration's gap groups, over K3's local prefixes, then
+    # K2's Horner combine of the six groups it folded
+    folded = fold_kernel(dev, case, record, local[:109243])
+    horner_kernel(dev, case, record, folded)
+
+    # K2's bucket boundaries on a CONFIGS[16] recode's level
+    boundary_kernel(dev, case, record, pts)
 
     # K5 at BGMW's first two levels: (60, 16384) and (32, 1024)
     phase_seg_kernels(dev, case, record, curve.to_rows32(pts).XY,
                       np.random.default_rng(13))
+
+
+def k2_lanes(curve, pts):
+    """K2's inputs on the lanes of the affine points `pts`: xyzz sums `acc`
+    (lane 0 infinity, lanes 1 and 2 the point itself, the others its
+    double), `other` the points negated where `signs` (every third lane
+    from 2), so lane 1 adds P + P and lane 2 P - P."""
+    B = pts.X.shape[-1]
+    lane = torch.arange(B, device=pts.X.device)
+    base = curve.xyzz_from_affine(pts)
+    acc = curve.xyzz_double(base)
+    acc = curve.select(lane == 0, curve.xyzz_inf((B,), lane.device), acc)
+    acc = curve.select((lane == 1) | (lane == 2), base, acc)
+    signs = (lane % 3 == 2)
+    return acc, curve.xyzz_from_affine(pts, negate=signs), signs
 
 
 def level_shapes():
@@ -404,23 +430,17 @@ def level_kernel(dev, case, record, pts):
     """K3 against its plain version at each of level_shapes(), on rows of
     the 2^16 fixed points `pts` drawn with a seed: lane 0 runs P, 2P, P,
     infinity. The bound counts the level's (c - 1) n_ch mixed adds; the
-    print line gives the depth model: c adds times a one-lane K2 mixed
-    add, beside K4's depth over the n_ch tails. The JSON line keeps the
-    CHES shape's measurements (recorded last) and every shape's under
-    "shapes". Returns the CHES level's local rows."""
-    from msm_blst_tpu_torch.curves import cuda_point
+    print line gives the depth model: c adds times one mixed add (K3's
+    own, one_lane_madd_ms), beside K4's depth over the n_ch tails. The JSON
+    line keeps the CHES shape's measurements (recorded last) and every
+    shape's under "shapes". Returns the CHES level's local rows."""
     from msm_blst_tpu_torch.msm import cuda_scan, scan
 
     curve, E = case.curve, case.elem_bytes
     W = curve.F.n_words
     name = case.name("affine_prefix_level")
     rows = curve.to_rows32(pts).XY
-    one = curve.xyzz_from_affine(type(pts)(*(c[..., :1].contiguous()
-                                             for c in pts)))
-    lone = type(pts)(*(c[..., 4:5].contiguous() for c in pts))
-    sub = torch.zeros(1, dtype=torch.bool, device=dev)
-    one_ms = queued_ms(lambda: cuda_point.xyzz_dadd_affine(curve, one, lone,
-                                                           sub), 50)
+    one_ms = one_lane_madd_ms(curve, rows)
     shapes = []
     for path, (c, n_ch) in level_shapes().items():
         rng = np.random.default_rng(13)
@@ -453,8 +473,8 @@ def level_kernel(dev, case, record, pts):
         s = scan.scan_schedule(n_ch)
         tails = scan.scan_depth(s)
         print(f"kernel {name} {path} (c, n_ch)=({c}, {n_ch}): "
-              f"{-(-n_ch // 128)} blocks, depth {c} adds x one-lane "
-              f"dadd_affine {one_ms:.4f} ms = {c * one_ms:.4f} ms; K4 over "
+              f"{-(-n_ch // 128)} blocks, depth {c} adds x one mixed add "
+              f"(K3's) {one_ms:.4f} ms = {c * one_ms:.4f} ms; K4 over "
               f"the {n_ch} tails {tuple(s)}, {tails} adds: level and tails "
               f"{c + tails} adds")
         shapes.append(dict(r))
@@ -481,13 +501,35 @@ def queued_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# The unit of the depth figures of K3, K4 and K9, which run fp.cuh's
+# portable product (K2's runs on carry chains, csrc/k2_mul.cuh): one add's
+# latency in one of them. K4 on two elements is one tile whose longest
+# chain is scan_depth(scan_schedule(2)) = 8 adds; K3 on a lane of two
+# columns is one mixed add.
 def one_lane_dadd_ms(curve, pts) -> float:
-    """queued_ms of a K2 dadd of lanes 0 and 4 of `pts`: one add's latency."""
-    from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
+    """queued_ms of K4 on lanes 0 and 4 of `pts`, over its depth: one xyzz
+    add's latency on fp.cuh's product."""
+    from msm_blst_tpu_torch.curves import XyzzPoint
+    from msm_blst_tpu_torch.msm import scan
 
-    one = XyzzPoint(*(c[..., :1].contiguous() for c in pts))
-    two = XyzzPoint(*(c[..., 4:5].contiguous() for c in pts))
-    return queued_ms(lambda: cuda_point.xyzz_dadd(curve, one, two), 50)
+    two = XyzzPoint(*(torch.cat([c[..., :1], c[..., 4:5]], dim=-1)
+                      for c in pts))
+    depth = scan.scan_depth(scan.scan_schedule(2))
+    return queued_ms(lambda: scan.prefix_scan_xyzz(curve, two), 50) / depth
+
+
+def one_lane_madd_ms(curve, rows) -> float:
+    """queued_ms of K3 on one lane of two columns (rows 0 and 4 of the
+    table `rows`): one mixed add's latency on fp.cuh's product."""
+    from msm_blst_tpu_torch.msm import cuda_scan
+
+    W = curve.F.n_words
+    g = rows[torch.tensor([0, 4], device=rows.device)]
+    rx = g[:, :W].reshape(2, 1, W).contiguous()
+    ry = g[:, W:].reshape(2, 1, W).contiguous()
+    sg = torch.zeros((2, 1), dtype=torch.int32, device=rows.device)
+    return queued_ms(lambda: cuda_scan.affine_prefix_level(curve, rx, ry, sg),
+                     50)
 
 
 # K4's stream lengths on the query paths at n = 2^16: stock's weighted sums
@@ -505,7 +547,7 @@ def scan_kernel(dev, case, record, rows):
     pair at 10, 11 and infinity every 997th lane from 5. Beside the bound,
     which counts the function's N - 1 adds, the print line gives the
     schedule and the depth model: the adds on the longest chain of the
-    schedule times a one-lane K2 dadd. The JSON line keeps the last
+    schedule times one add (one_lane_dadd_ms). The JSON line keeps the last
     length's measurements and every length's under "shapes"."""
     from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
     from msm_blst_tpu_torch.msm import scan
@@ -537,8 +579,8 @@ def scan_kernel(dev, case, record, rows):
         depth = scan.scan_depth(s)
         print(f"kernel {name} N={N}: (k, tiles, k_carry) {tuple(s)}, "
               f"{1 if s.n_tiles == 1 else 3} grid launch(es) a call by the "
-              f"schedule, depth {depth} adds x one-lane dadd {one_ms:.4f} ms"
-              f" = {depth * one_ms:.4f} ms")
+              f"schedule, depth {depth} adds x one add (fp.cuh's product) "
+              f"{one_ms:.4f} ms = {depth * one_ms:.4f} ms")
         shapes.append(dict(r))
     r["shapes"] = shapes  # r is the kernel's entry in the JSON line
 
@@ -550,8 +592,8 @@ def fold_kernel(dev, case, record, rows):
     997th lane from lane 5 set to infinity), and three more segments: P
     and P (the add doubles), P and -P (it cancels), and an empty one.
     Beside the bound, the print line gives the depth model: the adds on
-    the longest thread chain, summed over the passes, times a one-lane K2
-    dadd."""
+    the longest thread chain, summed over the passes, times one add
+    (one_lane_dadd_ms). Returns K9's sums."""
     from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
     from msm_blst_tpu_torch.msm import params, scan
     from msm_blst_tpu_torch.msm.engine import gap_groups
@@ -596,8 +638,124 @@ def fold_kernel(dev, case, record, rows):
         int(-(-(t[:, 1] - t[:, 0]).max() // scan.FOLD_THREADS)) - 1
         + scan.FOLD_THREADS.bit_length() - 1 for _, t in sched)
     print(f"kernel {case.name('xyzz_fold')}: passes (k, tiles) "
-          f"{[(k, len(t)) for k, t in sched]}, depth {depth} adds x one-lane"
-          f" dadd {one_ms:.4f} ms = {depth * one_ms:.4f} ms")
+          f"{[(k, len(t)) for k, t in sched]}, depth {depth} adds x one add"
+          f" (fp.cuh's product) {one_ms:.4f} ms = {depth * one_ms:.4f} ms")
+    return got
+
+
+def horner_work(present):
+    """(adds, doublings, depth in formulas) of K2's Horner combine over the
+    gap groups present (integrate_gapped): each bit's part adds its groups
+    in a thread of its own; then a doubling and an add a bit."""
+    d_max = len(present)
+    bits = d_max.bit_length()
+    parts = [sum(present[g - 1] for g in range(1, d_max + 1) if g >> b & 1)
+             for b in range(bits)]
+    taken = [b for b in range(bits) if parts[b]]
+    top = max(taken) if taken else -1
+    adds = sum(max(p - 1, 0) for p in parts) + sum(1 for b in taken if b < top)
+    doubles = max(top, 0)
+    return adds, doubles, max(parts) - 1 + doubles + (len(taken) - 1)
+
+
+def horner_kernel(dev, case, record, folded):
+    """K2's Horner combine against its plain twin on the CHES integration's
+    six gap groups as K9 folded them (the first six of `folded`), all
+    present, as the main path runs it; the print line gives the card's time
+    for it alone (queued_ms) beside its depth in formulas."""
+    from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
+    from msm_blst_tpu_torch.msm import params
+
+    curve, E = case.curve, case.elem_bytes
+    d_max = params.CONFIGS[N_LOG].d_max
+    sums = XyzzPoint(*(c[..., :d_max].contiguous() for c in folded))
+    present = [True] * d_max
+    adds, doubles, depth = horner_work(present)
+    name = case.name("point_gap_horner")
+    record(name, lambda: tuple(cuda_point.gap_horner(curve, sums, present)),
+           lambda: tuple(cuda_point.gap_horner_plain(curve, sums, present)),
+           20, 2, 4 * E * (d_max + 1),
+           adds * case.mont(DADD) + doubles * case.mont(DOUBLE))
+    alone = queued_ms(lambda: cuda_point.gap_horner(curve, sums, present), 50)
+    print(f"kernel {name}: {d_max} groups, {adds} adds and {doubles} "
+          f"doublings, {depth} formulas deep; the card alone (queued) "
+          f"{alone:.4f} ms")
+
+
+BOUNDARY_SEED = 0  # the scalars of the recode K2's boundary launch runs on
+
+
+def ches_level(curve, pts):
+    """The K3 level of the CHES digit stream of one CONFIGS[16] host recode
+    (scalars from BOUNDARY_SEED; 917,504 digits, key-sorted, slot s reading
+    the affine point s mod 2^16 of `pts`) at stream_shape's (c, n_ch), as
+    prefix_pipeline.bucket_sums_prefix forms it: (the sorted keys, the local
+    prefixes, the lane tails, c, n_ch)."""
+    from msm_blst_tpu_torch.msm import (cuda_scan, engine, params,
+                                        prefix_pipeline, recode)
+
+    dev = pts.X.device
+    cfg = params.CONFIGS[N_LOG]
+    n = 1 << N_LOG
+    b, m, sg = recode.ches_recode_host(recode.random_scalars(n, BOUNDARY_SEED),
+                                       cfg.c, cfg.h, cfg.ah)
+    keys = params.bucket_value_to_index(cfg.q, cfg.ah)[b]
+    slots = engine.ches_slots(np.arange(n)[:, None], np.arange(cfg.h)[None, :],
+                              m - 1, cfg.h) % n
+    keys_s, perm = torch.sort(torch.as_tensor(keys.reshape(-1), dtype=torch.int32,
+                                              device=dev), stable=True)
+    slots_s = torch.as_tensor(slots.reshape(-1), dtype=torch.int32,
+                              device=dev)[perm]
+    signs_s = torch.as_tensor(sg.reshape(-1) != 0, device=dev)[perm]
+    c, n_ch = prefix_pipeline.stream_shape(keys_s.shape[0])
+    slots_cm, signs_cm = prefix_pipeline.column_major_streams(slots_s, signs_s,
+                                                              c, n_ch)
+    rx, ry = prefix_pipeline.gather_rows(curve, curve.to_rows32(pts), slots_cm,
+                                         c, n_ch)
+    local, tails = cuda_scan.affine_prefix_level(curve, rx, ry,
+                                                 signs_cm.reshape(c, n_ch))
+    return keys_s, local, tails, c, n_ch
+
+
+def boundary_kernel(dev, case, record, pts):
+    """K2's bucket boundaries against their plain twin at the main path's
+    shape: the CHES digit stream of one CONFIGS[16] host recode (917,504
+    digits, key-sorted, over 109,244 buckets), slot s reading fixed point s
+    mod 2^16 (`pts`), through K3 at stream_shape's level and K4 over its
+    tails, then searchsorted for the right boundaries, as
+    prefix_pipeline.buckets_from_boundaries runs them. The bound counts the
+    adds this stream needs (a boundary's prefix where its lane has a carry,
+    a difference where both prefixes are finite) and the bytes read once:
+    the boundaries, the rows and carries they name, the buckets."""
+    from msm_blst_tpu_torch.curves import cuda_point
+    from msm_blst_tpu_torch.msm import params, scan
+
+    curve, E = case.curve, case.elem_bytes
+    keys_s, local, tails, c, n_ch = ches_level(curve, pts)
+    incl = scan.prefix_scan_xyzz(curve, tails)
+    nb = params.CONFIGS[N_LOG].b_size
+    right = torch.searchsorted(keys_s, torch.arange(nb, dtype=torch.int32,
+                                                    device=dev),
+                               right=True, out_int32=True)
+    r = right.to(torch.int64)
+    kch = torch.div((r - 1).clamp(min=0), c, rounding_mode="floor")
+    carried = (r > 0) & (kch > 0)
+    firsts = int(carried.sum())
+    seconds = int(((r[1:] > 0) & (r[:-1] > 0)).sum())
+    n_bytes = (4 * nb + 4 * E * int((r > 0).sum())
+               + 4 * E * int(torch.unique(kch[carried]).numel()) + 4 * E * nb)
+    empty = int((r[1:] == r[:-1]).sum()) + int(r[0] == 0)
+    crossing = int((kch[1:] > kch[:-1]).sum())
+    print(f"kernel {case.name('point_bucket_diffs')}: {nb} buckets of a "
+          f"level ({c}, {n_ch}); {empty} empty, {int((r == 0).sum())} with "
+          f"the right boundary at 0, {crossing} whose boundary moves to a "
+          f"later lane; {firsts} + {seconds} adds")
+    record(case.name("point_bucket_diffs"),
+           lambda: tuple(cuda_point.bucket_diffs(curve, right, local, incl, c,
+                                                 n_ch)),
+           lambda: tuple(cuda_point.bucket_diffs_plain(curve, right, local,
+                                                       incl, c, n_ch)),
+           20, 1, n_bytes, (firsts + seconds) * case.mont(DADD))
 
 
 def seg_work(keys, n_buckets: int, in_bytes: int, mont_add: int,
@@ -755,25 +913,33 @@ def read_counts(path: str, names, unused=()) -> dict:
     return launches
 
 
-# The kernels each query launches: the integration's adds, doublings,
-# suffix scan and folds (K9) and the conversion to Jacobian, then those of
-# its bucket strategy. By op, for either curve; K1 (mont_mul) serves both.
-QUERY_KERNELS = ["point_dadd", "point_double", "xyzz_prefix_scan",
-                 "xyzz_fold"]
-STRATEGY_KERNELS = {"prefix": ["affine_prefix_level"],
+# The kernels each query launches: the integration's suffix scans (K4)
+# and folds (K9) and the conversion to Jacobian; the CHES integration's
+# Horner combine (one K2 launch), the other integrations' adds and
+# doublings; then those of the bucket strategy (the prefix strategy's
+# boundaries: one K2 launch). By op, for either curve; K1 (mont_mul)
+# serves both.
+QUERY_KERNELS = ["xyzz_prefix_scan", "xyzz_fold"]
+INTEGRATION_KERNELS = {"gapped": ["point_gap_horner"],
+                       "weighted": ["point_dadd", "point_double"]}
+STRATEGY_KERNELS = {"prefix": ["affine_prefix_level", "point_bucket_diffs"],
                     "segmented": ["seg_level_affine", "seg_level_xyzz"]}
+# K2's formula launches, which a CHES query no longer makes of its own
+K2_FORMULAS = ["point_dadd_affine", "point_dadd", "point_double"]
+# K2's launches a CHES query makes: each once a query
+CHES_K2 = ["point_bucket_diffs", "point_gap_horner"]
 
 
 # The multiply each mul_impl launches for every unfused field product
 MUL_KERNEL = {"cios": "mont_mul", "sos": "sos_mul"}
 
 
-def path_kernels(case, ops, impl=None, mul_impl="cios"):
+def path_kernels(case, ops, impl=None, mul_impl="cios", unused_ops=()):
     """(kernels the path must launch, kernels it must not), by name: the
     multiply of `mul_impl` (K1 or K6) and the curve's kernels of `ops`; not
     the other multiply, K6's partial stages, another curve's K2-K5, the
-    drivers' K7 and K8, nor the other bucket strategy's (when `impl` is
-    given)."""
+    drivers' K7 and K8, the other bucket strategy's (when `impl` is given),
+    nor the curve's kernels of `unused_ops`."""
     mul = MUL_KERNEL[mul_impl]
     unused = [k.name for k in counters().values()
               if (k.op in case.kernels and k is not case.kernels[k.op])
@@ -782,15 +948,38 @@ def path_kernels(case, ops, impl=None, mul_impl="cios"):
     if impl is not None:
         unused += [case.name(op) for s, ops_s in STRATEGY_KERNELS.items()
                    if s != impl for op in ops_s]
+    unused += [case.name(op) for op in unused_ops]
     return [mul] + [case.name(op) for op in ops], unused
+
+
+def query_kernels(integration: str, impl: str):
+    """The ops a query path must launch, by its integration and bucket
+    strategy."""
+    return (QUERY_KERNELS + INTEGRATION_KERNELS[integration]
+            + STRATEGY_KERNELS[impl])
+
+
+def check_ches_k2(path: str, case, launches: dict, queries: int,
+                  before=None) -> None:
+    """A CHES path's queries (`launches` less `before`) launched K2's
+    boundary and Horner kernels once a query each, and no K2 formula of
+    their own."""
+    delta = {op: launches[case.name(op)] - (before or {}).get(case.name(op), 0)
+             for op in CHES_K2 + K2_FORMULAS}
+    want = {op: queries if op in CHES_K2 else 0 for op in delta}
+    print(f"{path}: K2 launches of the queries {delta} ({queries} queries)")
+    if delta != want:
+        raise AssertionError(f"{path}: K2 launched {delta}, not {want}")
 
 
 def per_query(path: str, case, launches: dict, queries: int,
               before=None) -> None:
-    """The path's K2 dadd, K9 and K4 launches a query (less those counted
-    in `before`, a snapshot taken before the queries)."""
+    """The path's K2 dadd, K9 and K4 launches a query and K2's boundary
+    and Horner launches (less those counted in `before`, a snapshot taken
+    before the queries)."""
     for name in (case.name("point_dadd"), case.name("xyzz_fold"),
-                 case.name("xyzz_prefix_scan")):
+                 case.name("xyzz_prefix_scan"),
+                 *(case.name(op) for op in CHES_K2)):
         n = launches[name] - (before or {}).get(name, 0)
         print(f"{path}: {name} launches a query: {n / queries:g}")
 
@@ -857,10 +1046,11 @@ def phase_main_path(dev, case, mul_impl="cios", seeds=SEEDS):
           f"{1e3 * sum(times) / len(times):.3f} ms, min {1e3 * min(times):.3f}"
           f" ms")
     launches = read_counts(label, *path_kernels(
-        case, ["point_dadd_affine"] + QUERY_KERNELS + ["affine_prefix_level"],
-        "prefix", mul_impl))
+        case, K2_FORMULAS + query_kernels("gapped", "prefix"), "prefix",
+        mul_impl))
     check_level_shapes(label, n * cfg.h)
     per_query(label, case, launches, 1 + len(seeds), built)
+    check_ches_k2(label, case, launches, 1 + len(seeds), built)
     return launches
 
 
@@ -893,20 +1083,23 @@ def phase_algorithms(dev, case, seeds):
         f"{label} plan", *path_kernels(
             case, ["point_dadd_affine", "point_dadd", "point_double"]))}
     stock_seeds = seeds[:max(1, len(seeds) - 1)]
-    # (name, bucket strategy, query, timed seeds, digits a bucket pass)
+    # (name, integration, bucket strategy, query, timed seeds, digits a
+    # bucket pass)
     queries = [
-        ("ches_host_recode", "prefix", lambda s: msm_ches_host_recode(
+        ("ches_host_recode", "gapped", "prefix", lambda s: msm_ches_host_recode(
             plan, host[s], bucket_impl="prefix"), seeds, n * cfg.h),
-        ("bgmw_prefix", "prefix", lambda s: msm_bgmw_device(
+        ("bgmw_prefix", "weighted", "prefix", lambda s: msm_bgmw_device(
             plan, scalars[s], bucket_impl="prefix"), seeds, n * cfg.h_bgmw),
-        ("bgmw_segmented", "segmented", lambda s: msm_bgmw_device(
+        ("bgmw_segmented", "weighted", "segmented", lambda s: msm_bgmw_device(
             plan, scalars[s], bucket_impl="segmented"), seeds, None),
-        ("stock_prefix", "prefix", lambda s: msm_stock_pippenger(
+        ("stock_prefix", "weighted", "prefix", lambda s: msm_stock_pippenger(
             plan, scalars[s], bucket_impl="prefix"), stock_seeds, n),
-        ("stock_segmented", "segmented", lambda s: msm_stock_pippenger(
-            plan, scalars[s], bucket_impl="segmented"), stock_seeds, None),
+        ("stock_segmented", "weighted", "segmented",
+         lambda s: msm_stock_pippenger(plan, scalars[s],
+                                       bucket_impl="segmented"),
+         stock_seeds, None),
     ]
-    for name, impl, query, qseeds, stream in queries:
+    for name, integration, impl, query, qseeds, stream in queries:
         reset_counts()
         check(WARM_SEED, query(WARM_SEED))
         times = []
@@ -920,13 +1113,21 @@ def phase_algorithms(dev, case, seeds):
         print(f"{label}: {name}: {len(qseeds)} queries equal to the oracle;"
               f" query mean {1e3 * sum(times) / len(times):.3f} ms, min "
               f"{1e3 * min(times):.3f} ms")
+        other = [op for i, ops in INTEGRATION_KERNELS.items()
+                 if i != integration for op in ops]
+        if integration == "gapped":
+            other += K2_FORMULAS
         paths[f"{curve.name}_{name}"] = read_counts(
             f"{label} {name}", *path_kernels(
-                case, QUERY_KERNELS + STRATEGY_KERNELS[impl], impl))
+                case, query_kernels(integration, impl), impl,
+                unused_ops=other))
         if stream is not None:
             check_level_shapes(f"{label} {name}", stream)
         per_query(f"{label} {name}", case, paths[f"{curve.name}_{name}"],
                   1 + len(qseeds))
+        if integration == "gapped":
+            check_ches_k2(f"{label} {name}", case,
+                          paths[f"{curve.name}_{name}"], 1 + len(qseeds))
     return paths
 
 

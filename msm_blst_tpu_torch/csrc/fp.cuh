@@ -86,10 +86,14 @@ struct Fp {
   uint32_t w[NW];
 };
 
-// c0 + c1*i; each component canonical, so products are unique words.
-struct Fp2 {
-  Fp c0, c1;
+// c0 + c1*i; each component canonical, so products are unique words. The
+// component type B is Fp, or a field of the same words with a product of
+// its own (k2_mul.cuh's FpK2).
+template <class B>
+struct Fp2T {
+  B c0, c1;
 };
+using Fp2 = Fp2T<Fp>;
 
 // Words of one element in the row and column layouts.
 template <class F>
@@ -98,8 +102,8 @@ template <>
 struct Words<Fp> {
   static constexpr int value = NW;
 };
-template <>
-struct Words<Fp2> {
+template <class B>
+struct Words<Fp2T<B>> {
   static constexpr int value = 2 * NW;
 };
 
@@ -234,37 +238,44 @@ MSM_HD void fp_mul(Fp& r, const Fp& a, const Fp& b) {
 
 // ---- Fp2: the same overload set over (c0, c1) --------------------------------
 
-MSM_HD bool fp_is_zero(const Fp2& a) {
+template <class B>
+MSM_HD bool fp_is_zero(const Fp2T<B>& a) {
   return fp_is_zero(a.c0) && fp_is_zero(a.c1);
 }
 
-MSM_HD void fp_zero(Fp2& r) {
+template <class B>
+MSM_HD void fp_zero(Fp2T<B>& r) {
   fp_zero(r.c0);
   fp_zero(r.c1);
 }
 
-MSM_HD void fp_set_one_mont(Fp2& r) {
+template <class B>
+MSM_HD void fp_set_one_mont(Fp2T<B>& r) {
   fp_set_one_mont(r.c0);
   fp_zero(r.c1);
 }
 
-MSM_HD void fp_add(Fp2& r, const Fp2& a, const Fp2& b) {
+template <class B>
+MSM_HD void fp_add(Fp2T<B>& r, const Fp2T<B>& a, const Fp2T<B>& b) {
   fp_add(r.c0, a.c0, b.c0);
   fp_add(r.c1, a.c1, b.c1);
 }
 
-MSM_HD void fp_sub(Fp2& r, const Fp2& a, const Fp2& b) {
+template <class B>
+MSM_HD void fp_sub(Fp2T<B>& r, const Fp2T<B>& a, const Fp2T<B>& b) {
   fp_sub(r.c0, a.c0, b.c0);
   fp_sub(r.c1, a.c1, b.c1);
 }
 
-MSM_HD void fp_neg(Fp2& r, const Fp2& a) {
+template <class B>
+MSM_HD void fp_neg(Fp2T<B>& r, const Fp2T<B>& a) {
   fp_neg(r.c0, a.c0);
   fp_neg(r.c1, a.c1);
 }
 
-MSM_HD void fp_mul3(Fp2& r, const Fp2& a) {
-  Fp2 t;
+template <class B>
+MSM_HD void fp_mul3(Fp2T<B>& r, const Fp2T<B>& a) {
+  Fp2T<B> t;
   fp_add(t, a, a);
   fp_add(r, t, a);
 }
@@ -274,8 +285,9 @@ MSM_HD void fp_mul3(Fp2& r, const Fp2& a) {
 // alias a or b. Not inlined: a G2 formula calls it a dozen or more times,
 // and one body per kernel keeps the kernels' code and build time small
 // (static: each source that includes this header has its own copy).
-MSM_HD_NOINLINE void fp_mul(Fp2& r, const Fp2& a, const Fp2& b) {
-  Fp t0, t1, t2, sa, sb;
+template <class B>
+MSM_HD_NOINLINE void fp_mul(Fp2T<B>& r, const Fp2T<B>& a, const Fp2T<B>& b) {
+  B t0, t1, t2, sa, sb;
   fp_mul(t0, a.c0, b.c0);
   fp_mul(t1, a.c1, b.c1);
   fp_add(sa, a.c0, a.c1);
@@ -467,22 +479,26 @@ MSM_HD void store_row(uint32_t* row, const Fp& a) {
   for (int k = 0; k < NW; ++k) row[k] = a.w[k];
 }
 
-MSM_HD void load_col(Fp2& r, const uint32_t* base, int64_t n, int64_t i) {
+template <class B>
+MSM_HD void load_col(Fp2T<B>& r, const uint32_t* base, int64_t n, int64_t i) {
   load_col(r.c0, base, n, i);
   load_col(r.c1, base + NW * n, n, i);
 }
 
-MSM_HD void store_col(uint32_t* base, const Fp2& a, int64_t n, int64_t i) {
+template <class B>
+MSM_HD void store_col(uint32_t* base, const Fp2T<B>& a, int64_t n, int64_t i) {
   store_col(base, a.c0, n, i);
   store_col(base + NW * n, a.c1, n, i);
 }
 
-MSM_HD void load_row(Fp2& r, const uint32_t* row) {
+template <class B>
+MSM_HD void load_row(Fp2T<B>& r, const uint32_t* row) {
   load_row(r.c0, row);
   load_row(r.c1, row + NW);
 }
 
-MSM_HD void store_row(uint32_t* row, const Fp2& a) {
+template <class B>
+MSM_HD void store_row(uint32_t* row, const Fp2T<B>& a) {
   store_row(row, a.c0);
   store_row(row + NW, a.c1);
 }
@@ -530,7 +546,8 @@ MSM_HD void mont_mul_elem(const uint32_t* a, const uint32_t* b, uint32_t* out,
   for (int k = 0; k < N; ++k) out[k * n + i] = r[k];
 }
 
-// K2, one lane of each op.
+// K2, one lane of dadd_affine (its dadd and double kernels add through
+// point_ops.cuh's per-field add and doubling).
 template <class F>
 MSM_HD void dadd_affine_elem(XyzzCols p1, const uint32_t* x2, const uint32_t* y2,
                              const int32_t* sign, XyzzColsOut o, int64_t n,
@@ -541,24 +558,6 @@ MSM_HD void dadd_affine_elem(XyzzCols p1, const uint32_t* x2, const uint32_t* y2
   load_col(b.x, x2, n, i);
   load_col(b.y, y2, n, i);
   xyzz_dadd_affine(r, a, b, sign[i] != 0);
-  store_xyzz(o, r, n, i);
-}
-
-template <class F>
-MSM_HD void dadd_elem(XyzzCols p1, XyzzCols p2, XyzzColsOut o, int64_t n,
-                      int64_t i) {
-  XyzzT<F> a, b, r;
-  load_xyzz(a, p1, n, i);
-  load_xyzz(b, p2, n, i);
-  xyzz_dadd(r, a, b);
-  store_xyzz(o, r, n, i);
-}
-
-template <class F>
-MSM_HD void double_elem(XyzzCols p1, XyzzColsOut o, int64_t n, int64_t i) {
-  XyzzT<F> a, r;
-  load_xyzz(a, p1, n, i);
-  xyzz_double(r, a);
   store_xyzz(o, r, n, i);
 }
 

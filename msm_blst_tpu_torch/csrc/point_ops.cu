@@ -1,8 +1,9 @@
-// K2 for G1 (coordinates in Fp): the C entry points of point_ops.cuh.
+// K2 for G1 (coordinates in k2_mul.cuh's FpK2): the C entry points of
+// point_ops.cuh.
 
 #include "point_ops.cuh"
 
-using msm::Fp;
+using msm::FpK2;
 
 extern "C" int msm_xyzz_dadd_affine(const void* x1, const void* y1,
                                     const void* zzz1, const void* zz1,
@@ -10,8 +11,8 @@ extern "C" int msm_xyzz_dadd_affine(const void* x1, const void* y1,
                                     const void* sign, void* ox, void* oy,
                                     void* ozzz, void* ozz, int64_t n,
                                     void* stream) {
-  return msm::point_ops::dadd_affine<Fp>(x1, y1, zzz1, zz1, x2, y2, sign, ox,
-                                         oy, ozzz, ozz, n, stream);
+  return msm::point_ops::dadd_affine<FpK2>(x1, y1, zzz1, zz1, x2, y2, sign, ox,
+                                           oy, ozzz, ozz, n, stream);
 }
 
 extern "C" int msm_xyzz_dadd(const void* x1, const void* y1, const void* zzz1,
@@ -19,13 +20,42 @@ extern "C" int msm_xyzz_dadd(const void* x1, const void* y1, const void* zzz1,
                              const void* zzz2, const void* zz2, void* ox,
                              void* oy, void* ozzz, void* ozz, int64_t n,
                              void* stream) {
-  return msm::point_ops::dadd<Fp>(x1, y1, zzz1, zz1, x2, y2, zzz2, zz2, ox, oy,
-                                  ozzz, ozz, n, stream);
+  return msm::point_ops::dadd<FpK2>(x1, y1, zzz1, zz1, x2, y2, zzz2, zz2, ox,
+                                    oy, ozzz, ozz, n, stream);
 }
 
 extern "C" int msm_xyzz_double(const void* x1, const void* y1, const void* zzz1,
                                const void* zz1, void* ox, void* oy, void* ozzz,
                                void* ozz, int64_t n, void* stream) {
-  return msm::point_ops::dbl<Fp>(x1, y1, zzz1, zz1, ox, oy, ozzz, ozz, n,
-                                 stream);
+  return msm::point_ops::dbl<FpK2>(x1, y1, zzz1, zz1, ox, oy, ozzz, ozz, n,
+                                   stream);
 }
+
+extern "C" int msm_xyzz_bucket_diffs(const void* right, const void* local,
+                                     const void* ix, const void* iy,
+                                     const void* izzz, const void* izz,
+                                     void* ox, void* oy, void* ozzz, void* ozz,
+                                     int c, int64_t n_ch, int64_t n_buckets,
+                                     void* stream) {
+  return msm::point_ops::bucket_diffs<FpK2>(right, local, ix, iy, izzz, izz, ox,
+                                            oy, ozzz, ozz, c, n_ch, n_buckets,
+                                            stream);
+}
+
+extern "C" int msm_xyzz_gap_horner(const void* x, const void* y,
+                                   const void* zzz, const void* zz, void* ox,
+                                   void* oy, void* ozzz, void* ozz,
+                                   int64_t present, int d_max, void* stream) {
+  return msm::point_ops::gap_horner<FpK2>(x, y, zzz, zz, ox, oy, ozzz, ozz,
+                                          present, d_max, stream);
+}
+
+// The resident blocks an SM of the wide kernels as built: dadd_affine,
+// dadd, double, bucket_diffs.
+extern "C" int msm_point_occupancy(int* blocks) {
+  return msm::point_ops::occupancy<FpK2>(blocks);
+}
+
+// The resident blocks an SM that the wide kernels' launch bounds ask for,
+// on both curves (point_ops.cuh MIN_BLOCKS).
+extern "C" int msm_point_min_blocks() { return msm::point_ops::MIN_BLOCKS; }

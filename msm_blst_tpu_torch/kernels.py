@@ -14,7 +14,8 @@ kernel. The table of them is here, in one place: K1 (`MONT_MUL`), each
 curve's K2-K5 and K9 (`CURVE_KERNELS`), K6's stages (`SOS_MUL`), the
 measurement drivers' K7 (`MADD_CHAIN`, by dtype) and K8 (`GATHER_SMEM`),
 with the name a run reports each under, its C symbol and its source;
-`occupancy` reads K3's and K4's resident blocks an SM (K8's cluster
+`occupancy` reads K2's, K3's and K4's resident blocks an SM and
+`point_min_blocks` the blocks K2's launch bounds ask for (K8's cluster
 capacity: `drivers/gather_bench.py` `cluster_capacity`).
 """
 
@@ -27,6 +28,8 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 
 import torch
@@ -64,7 +67,8 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the cached shared library (no-op when built):
-    every source in its own nvcc process, in parallel, then one link."""
+    every source in its own nvcc process, in parallel, then one link. The
+    seconds each nvcc took go into the log."""
     so = library_path()
     if so.exists():
         return so
@@ -74,12 +78,25 @@ def build() -> Path:
     tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
         objs = [tmp / (cu.stem + ".o") for cu in cus]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)],
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(cu)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True)
                  for cu, o in zip(cus, objs)]
-        logs = [(cu, proc.communicate()[0], proc.returncode)
-                for cu, proc in zip(cus, procs)]
+        done = {}
+
+        def wait(cu, proc):  # each nvcc's output and the seconds it took
+            out = proc.communicate()[0]
+            done[cu] = (out, proc.returncode, time.perf_counter() - t0)
+        waits = [threading.Thread(target=wait, args=cp)
+                 for cp in zip(cus, procs)]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
+        logs = [(cu, *done[cu][:2]) for cu in cus]
+        secs = {cu: done[cu][2] for cu in cus}
         failed = [f"{cu.name} ({rc}):\n{out}" for cu, out, rc in logs if rc]
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
@@ -89,7 +106,8 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stderr}{link.stdout}")
         so.with_suffix(".log").write_text(
-            "".join(f"== {cu.name}\n{out}" for cu, out, _ in logs))
+            "".join(f"== {cu.name}\n{out}" for cu, out, _ in logs)
+            + "".join(f"nvcc {cu.name}: {secs[cu]:.1f} s\n" for cu in cus))
         os.replace(tmp / so.name, so)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -151,6 +169,14 @@ def ptxas_summary() -> dict:
     return out
 
 
+def nvcc_seconds() -> dict:
+    """{source: seconds its nvcc took} of the library's build, from its
+    build log."""
+    log = build().with_suffix(".log").read_text()
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"^nvcc (\S+): ([\d.]+) s$", log, re.M)}
+
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
@@ -184,6 +210,12 @@ _CURVE_OPS = {
     "point_dadd_affine": ("xyzz_dadd_affine", "point_ops", [_P] * 11 + [_I64]),
     "point_dadd": ("xyzz_dadd", "point_ops", [_P] * 12 + [_I64]),
     "point_double": ("xyzz_double", "point_ops", [_P] * 8 + [_I64]),
+    # right, local, the tails' scan, out; c, n_ch, n_buckets
+    "point_bucket_diffs": ("xyzz_bucket_diffs", "point_ops",
+                           [_P] * 10 + [_I32, _I64, _I64]),
+    # the gap groups' sums, out; the mask of present groups, d_max
+    "point_gap_horner": ("xyzz_gap_horner", "point_ops",
+                         [_P] * 8 + [_I64, _I32]),
     "affine_prefix_level": ("affine_prefix_level", "scan",
                             [_P] * 8 + [_I32, _I64]),
     "seg_level_affine": ("seg_level_affine", "seg",
@@ -222,11 +254,13 @@ MADD_CHAIN = {dtype: Kernel(f"madd_chain_{dtype}", "madd_chain",
 # cluster: table, idx, out, T, N
 GATHER_SMEM = Kernel("gather_smem", "gather_smem", "msm_gather_smem",
                      "gather_smem.cu", [_P] * 3 + [_I64, _I64])
-# The occupancy queries of K3 and K4, by op: each writes the resident
-# blocks an SM of the op's kernels as built (K3's one; K4's tile_scan,
-# tile_up and tile_down), into an int array of that length, from the C
-# function msm_[<tag>_]<symbol> in the op's source.
-OCCUPANCY = {"affine_prefix_level": ("affine_prefix_occupancy", 1),
+# The occupancy queries of K2, K3 and K4, by op: each writes the resident
+# blocks an SM of the op's kernels as built (K2's dadd_affine, dadd, double
+# and bucket_diffs; K3's one; K4's tile_scan, tile_up and tile_down), into
+# an int array of that length, from the C function msm_[<tag>_]<symbol> in
+# the op's source.
+OCCUPANCY = {"point_bucket_diffs": ("point_occupancy", 4),
+             "affine_prefix_level": ("affine_prefix_occupancy", 1),
              "xyzz_prefix_scan": ("xyzz_prefix_scan_occupancy", 3)}
 
 
@@ -246,6 +280,12 @@ def occupancy(curve: str, op: str) -> list:
     if rc != 0:
         raise RuntimeError(f"{symbol}: CUDA error {rc}")
     return list(out)
+
+
+def point_min_blocks() -> int:
+    """The resident blocks an SM that K2's wide kernels' launch bounds ask
+    for (csrc/point_ops.cuh MIN_BLOCKS), from the library as built."""
+    return load().msm_point_min_blocks()
 
 
 ALL_KERNELS = ([MONT_MUL] + [k for ks in CURVE_KERNELS.values()
@@ -268,6 +308,8 @@ def load():
                 fn = getattr(lib, occupancy_symbol(curve, op))
                 fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
                 fn.restype = ctypes.c_int
+        lib.msm_point_min_blocks.argtypes = []
+        lib.msm_point_min_blocks.restype = ctypes.c_int
         # K8's cluster capacity (drivers/gather_bench.py cluster_capacity)
         lib.msm_gather_smem_clusters.argtypes = [
             _I64, ctypes.POINTER(ctypes.c_int)]

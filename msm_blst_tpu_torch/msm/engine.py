@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..curves import cuda_point
 from ..curves.ops import (AffinePoint, CurveOps, JacPoint, PackedRows32,
                           XyzzPoint)
 from . import params as P
@@ -120,30 +121,13 @@ def integrate_gapped(curve: CurveOps, buckets: XyzzPoint,
     d-CHES trick): Sum_i B[i]*bucket[i] = Sum_{i>=1} gap_{i-1} * S_i with
     S_i the suffix sums over buckets[1:]. `groups` = gap_groups(gaps): one
     fold of all d_max gap groups (K9), combined by Horner over the gap
-    bits."""
+    bits in one K2 launch (cuda_point.gap_horner)."""
     tail = XyzzPoint(*(c[..., 1:] for c in buckets))
     suffix = suffix_scan_xyzz(curve, tail)
     folded = fold_segments(curve, suffix, groups.offsets, index=groups.members)
     o = groups.offsets
-    sums = [XyzzPoint(*(c[..., g:g + 1] for c in folded))
-            if o[g + 1] > o[g] else None for g in range(len(o) - 1)]
-    acc: Optional[XyzzPoint] = None
-    d_max = len(sums)
-    for bit in range(d_max.bit_length() - 1, -1, -1):
-        sel = [s for g, s in enumerate(sums, start=1)
-               if ((g >> bit) & 1) and s is not None]
-        part = None
-        if sel:
-            part = sel[0]
-            for s in sel[1:]:
-                part = curve.xyzz_dadd(part, s)
-        if acc is not None:
-            acc = curve.xyzz_double(acc)
-            if part is not None:
-                acc = curve.xyzz_dadd(acc, part)
-        else:
-            acc = part
-    return acc
+    present = [o[g + 1] > o[g] for g in range(len(o) - 1)]
+    return cuda_point.gap_horner(curve, folded, present)
 
 
 @dataclass

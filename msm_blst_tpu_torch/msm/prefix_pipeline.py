@@ -11,7 +11,8 @@ and xyzz negation is free (negate Y). Pipeline:
   2. packed table row gather,
   3. level-1 prefix down each lane's columns (K3, cuda_scan),
   4. prefix scan over the n_ch chunk tails (K4, the block scan),
-  5. per-bucket boundary gathers + bucket-wide dadds (K2).
+  5. the bucket boundaries (searchsorted), then each bucket's boundary
+     prefix and difference in one K2 launch (cuda_point.bucket_diffs).
 
 Steps 3 and 4 are the two levels of one scan, so a query's bucket sums lie
 c + scan_depth(scan_schedule(n_ch)) adds deep; `stream_shape` picks the
@@ -22,14 +23,16 @@ local prefixes and tails there are other xyzz words than JAX's and the
 bucket sums the same points; smaller streams keep its shape and words.
 
 Every index the pipeline forms is in range by construction: the stream is
-padded to c*n_ch, positions come from searchsorted and are clamped at 0,
-so nothing relies on JAX's silent clamping of out-of-range gathers.
+padded to c*n_ch, positions come from searchsorted and a boundary at 0 is
+infinity, so nothing relies on JAX's silent clamping of out-of-range
+gathers.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..curves import cuda_point
 from ..curves.ops import PackedRows32, XyzzPoint
 from ..utils.scans import pick_chunk
 from . import cuda_scan, scan
@@ -89,37 +92,17 @@ def gather_rows(curve, table: PackedRows32, slots_cm, c: int, n_ch: int):
 def buckets_from_boundaries(curve, local, tails: XyzzPoint, keys_s,
                             n_buckets: int, c: int, n_ch: int) -> XyzzPoint:
     """Assemble the dense bucket array from the prefix decomposition.
-    `local`: int32 (c, n_ch, 4W) rows of the four xyzz coordinates."""
-    F = curve.F
-    W = F.n_words
-    dev = keys_s.device
+    `local`: int32 (c, n_ch, 4W) rows of the four xyzz coordinates.
+
+    Only the RIGHT boundaries are searched: left_k (# elements with key <
+    k) equals right_{k-1}, so P(left_k) is P(right) shifted by one bucket.
+    The scan of the lane tails (K4) and the boundaries' searchsorted, then
+    the sums in one launch of K2 (cuda_point.bucket_diffs; its plain twin
+    on CPU tensors)."""
     incl = prefix_scan_xyzz(curve, tails)
-    inf1 = curve.xyzz_inf((1,), dev)
-    excl = XyzzPoint(*(torch.cat([z, x[..., :-1]], dim=-1)
-                       for z, x in zip(inf1, incl)))
-
-    # Only the RIGHT boundaries are gathered: left_k (# elements with key <
-    # k) equals right_{k-1}, so P(left_k) is P(right) shifted by one bucket.
-    kq = torch.arange(n_buckets, dtype=keys_s.dtype, device=dev)
-    right = torch.searchsorted(keys_s, kq, right=True)
-    rows = local.reshape(c * n_ch, 4 * W)
-
-    def prefix_at(idx1):
-        """P(idx1) = sum of the first idx1 stream elements; P(0) = inf."""
-        pos = torch.clamp(idx1 - 1, min=0)
-        kch = torch.div(pos, c, rounding_mode="floor")
-        j = pos - kch * c
-        g = rows.index_select(0, j * n_ch + kch)  # (B, 4W)
-        loc = XyzzPoint(*(curve.from_words(x.T)
-                          for x in torch.split(g, W, dim=1)))
-        val = curve.xyzz_dadd(curve.take(excl, kch), loc)
-        return curve.select(idx1 == 0, curve.xyzz_inf(idx1.shape, dev), val)
-
-    pe = prefix_at(right)
-    ps = XyzzPoint(*(torch.cat([z, x[..., :-1]], dim=-1)
-                     for z, x in zip(inf1, pe)))
-    ps_neg = XyzzPoint(ps.X, F.neg(ps.Y), ps.ZZZ, ps.ZZ)
-    return curve.xyzz_dadd(pe, ps_neg)
+    kq = torch.arange(n_buckets, dtype=keys_s.dtype, device=keys_s.device)
+    right = torch.searchsorted(keys_s, kq, right=True, out_int32=True)
+    return cuda_point.bucket_diffs(curve, right, local, incl, c, n_ch)
 
 
 _STREAM_CHUNK_ELEMS = 7 * 1024 * 1024

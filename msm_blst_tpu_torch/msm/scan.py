@@ -48,7 +48,8 @@ from . import cuda_scan
 
 # K9's and K4's block (csrc/fold.cuh and block_scan.cuh THREADS), and the
 # blocks that fill the H100 in one wave: 132 SMs, two blocks of 128 threads
-# an SM at 255 registers a thread (K2's dadd).
+# an SM, the occupancy of K4's and K9's own kernels at 255 registers a
+# thread (K3 is built for it too).
 FOLD_THREADS = 128
 FOLD_WAVE = 132 * 2
 

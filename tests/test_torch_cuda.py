@@ -65,9 +65,39 @@ def test_mont_mul_kernel_matches_plain(dev):
     assert torch.equal(got.cpu(), cuda_mont.mont_mul(a.cpu(), b.cpu(), FP))
 
 
+def _edge_words(curve, p: "XyzzPoint", dev):
+    """p with lanes 5.. 12 set to words at p - 1 and 0: X, Y, ZZZ or ZZ of
+    p - 1 in turn (lanes 5-8; p - 1 in both components on G2), every
+    coordinate p - 1 (lane 9), X and Y 0 with ZZZ and ZZ 1 (lane 10), every
+    coordinate 0 but X = p - 1 (lane 11) and Y = p - 1 (lane 12): the
+    operands at which the carry-chain product's every carry and borrow
+    fire, or none."""
+    from msm_blst_tpu_torch.curves import XyzzPoint
+
+    F = curve.F
+    pm1 = F.from_ints([P - 1], device=dev) if len(F.lead) == 1 else \
+        F.from_int_pairs([(P - 1, P - 1)], device=dev)
+    one = F.one_mont((1,), dev)
+    cols = [c.clone() for c in p]
+    for i in range(4):
+        cols[i][..., 5 + i:6 + i] = pm1
+    for c in cols:
+        c[..., 9:10] = pm1
+        c[..., 11:13] = 0
+    cols[0][..., 10:11] = 0
+    cols[1][..., 10:11] = 0
+    cols[2][..., 10:11] = one
+    cols[3][..., 10:11] = one
+    cols[0][..., 11:12] = pm1
+    cols[1][..., 12:13] = pm1
+    return XyzzPoint(*cols)
+
+
 @pytest.mark.parametrize("name", CURVES)
 def test_point_kernels_match_plain(dev, name):
-    from msm_blst_tpu_torch.curves import cuda_point
+    """K2's three formulas on lanes of infinity, P + P, P - P, and words at
+    p - 1 and 0 in each operand (the carry-chain product's edges)."""
+    from msm_blst_tpu_torch.curves import AffinePoint, cuda_point
 
     curve = _curve(name)
     B = 64
@@ -77,8 +107,12 @@ def test_point_kernels_match_plain(dev, name):
     acc = curve.select(lane == 0, curve.xyzz_inf((B,), dev),
                        curve.xyzz_double(base))
     acc = curve.select((lane == 1) | (lane == 2), base, acc)
+    acc = _edge_words(curve, acc, dev)
     signs = lane % 3 == 2
-    other = curve.xyzz_from_affine(pts, negate=signs)
+    other = _edge_words(curve, curve.xyzz_from_affine(pts, negate=signs), dev)
+    other = type(other)(*(c.roll(3, -1) for c in other))
+    edge = _edge_words(curve, curve.xyzz_from_affine(pts), dev)
+    pts = AffinePoint(edge.X, edge.Y)
     pairs = [
         (cuda_point.xyzz_dadd_affine(curve, acc, pts, signs),
          cuda_point.xyzz_dadd_affine_plain(curve, acc, pts, signs)),
@@ -118,6 +152,94 @@ def test_scan_kernels_match_plain(dev, name, c, n_ch):
     assert torch.equal(local, wl)
     assert all(torch.equal(a, b) for a, b in zip(tails, wt))
     assert not bool(local[3, 0, 2 * W:].any())  # P + P - P - P: ZZZ = ZZ = 0
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_point_kernels_keep_their_blocks(dev, name):
+    """K2's wide kernels as built keep the resident blocks an SM their
+    launch bounds ask for (csrc/point_ops.cuh MIN_BLOCKS), two or more."""
+    from msm_blst_tpu_torch import kernels
+
+    blocks = kernels.occupancy(name, "point_bucket_diffs")
+    asked = kernels.point_min_blocks()
+    assert asked >= 2
+    assert len(blocks) == 4 and min(blocks) >= asked
+
+
+def _boundary_case(curve, nb, dev):
+    """A key-sorted stream of 8 nb digits over nb buckets on a level of 7
+    columns: the first four buckets and bucket nb // 2 empty (the first
+    four's right boundary at 0), runs that cross lanes and one P, P, -P, P
+    run; its level (K3), the tails' scan (K4) and the right boundaries, as
+    buckets_from_boundaries forms them."""
+    from msm_blst_tpu_torch.msm import cuda_scan, prefix_pipeline, scan
+
+    rng = np.random.default_rng(nb)
+    c = 7
+    N = max(8 * nb, 40)
+    keys = np.sort(rng.integers(min(4, nb - 1), nb, N))
+    if nb > 8:  # bucket nb // 2 empty too
+        keys = np.where(keys == nb // 2, nb // 2 + 1, keys)
+    keys = keys.astype(np.int32)
+    slots = rng.integers(0, 32, N)
+    signs = rng.integers(0, 2, N)
+    slots[30:34], keys[30:34], signs[30:34] = slots[30], keys[30], (0, 0, 1, 0)
+    n_ch = -(-N // c)
+    rows = curve.to_rows32(_points(32, dev, curve.name))
+    slots_cm, signs_cm = prefix_pipeline.column_major_streams(
+        torch.as_tensor(slots, dtype=torch.int32, device=dev),
+        torch.as_tensor(signs != 0, device=dev), c, n_ch)
+    rx, ry = prefix_pipeline.gather_rows(curve, rows, slots_cm, c, n_ch)
+    local, tails = cuda_scan.affine_prefix_level(curve, rx, ry,
+                                                 signs_cm.reshape(c, n_ch))
+    incl = scan.prefix_scan_xyzz(curve, tails)
+    right = torch.searchsorted(
+        torch.as_tensor(keys, device=dev),
+        torch.arange(nb, dtype=torch.int32, device=dev), right=True,
+        out_int32=True)
+    return right, local, incl, c, n_ch
+
+
+@pytest.mark.parametrize("name", CURVES)
+@pytest.mark.parametrize("nb", [1, 127, 128, 129, 20000, 109244])
+def test_bucket_diffs_kernel_matches_plain(dev, name, nb):
+    """K2's boundary launch against its plain twin word for word, from one
+    bucket to the CHES query's 109,244, across the 127-bucket tiles."""
+    from msm_blst_tpu_torch.curves import cuda_point
+    from msm_blst_tpu_torch.kernels import CURVE_KERNELS
+
+    curve = _curve(name)
+    right, local, incl, c, n_ch = _boundary_case(curve, nb, dev)
+    if nb > 4:
+        assert (right[:4] == 0).all() and bool((right[1:] == right[:-1]).any())
+    kernel = CURVE_KERNELS[name]["point_bucket_diffs"]
+    before = kernel.launches
+    got = cuda_point.bucket_diffs(curve, right, local, incl, c, n_ch)
+    assert kernel.launches == before + 1
+    want = cuda_point.bucket_diffs_plain(curve, right, local, incl, c, n_ch)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("name", CURVES)
+@pytest.mark.parametrize("present", [[1], [1, 1], [0, 1], [1, 1, 1, 1, 1, 1],
+                                     [1, 1, 1, 0, 1, 1], [0, 0, 1, 0, 0, 1],
+                                     [0, 0, 0]])
+def test_gap_horner_kernel_matches_plain(dev, name, present):
+    """K2's Horner launch against its plain twin word for word at d_max =
+    1, 2 and 6, with groups absent, all absent (infinity), and a repeated
+    group (a doubling inside a part)."""
+    from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
+
+    curve = _curve(name)
+    base = curve.xyzz_double(curve.xyzz_from_affine(_points(8, dev, name)))
+    sums = XyzzPoint(*(c[..., :len(present)].clone() for c in base))
+    if len(present) == 6:
+        for c in sums:  # groups 1 and 3 equal: bit 0's part doubles
+            c[..., 2] = c[..., 0]
+    flags = [bool(p) for p in present]
+    got = cuda_point.gap_horner(curve, sums, flags)
+    want = cuda_point.gap_horner_plain(curve, sums, flags)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("name", CURVES)
