@@ -8,9 +8,10 @@ Phases, each reported on its own lines:
      device;
   2. build: compiles msm_blst_tpu_torch/csrc/*.cu (one nvcc per source, in
      parallel) and reports the time, each nvcc's, and each kernel's
-     registers and spills; K3's and K4's kernels must keep FOLD_WAVE // 132
-     blocks resident an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-     the wave the host schedules their launches for, and K2's wide kernels
+     registers and spills; K3's, K4's and K5's kernels must keep
+     FOLD_WAVE // 132 blocks resident an SM
+     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the wave the host
+     schedules their launches for, and K2's wide kernels
      the blocks their launch bounds ask for (kernels.point_min_blocks());
   3. drivers: the three measurement drivers of the port (microbench,
      mxu_experiment, gather_bench) at the JAX drivers' shapes, each
@@ -32,7 +33,11 @@ Phases, each reported on its own lines:
      run; K2's runs on carry chains); K2's two launches of the CHES query
      on their real inputs: the bucket boundaries of a CONFIGS[16] recode
      (109,244 buckets) and the Horner combine of the six gap groups K9
-     folded; K8 and torch.take also under a
+     folded; K5 (the segmented reduction) at a stock window's and BGMW's
+     shapes (cuda_scan.seg_level_shape): its affine level on real table
+     rows, then its segmented scan over that level's heads and tails, the
+     bucket arrays included, a doubling and a cancellation meeting in the
+     scan; K8 and torch.take also under a
      CUDA graph of 20 calls (the kernels without the host's launch work), beside
      K8's cluster size and the clusters of it the card keeps resident;
   5. main path: the G1 CHES n=2^16 query (params.CONFIGS[16]) — fixed
@@ -46,12 +51,14 @@ Phases, each reported on its own lines:
      same n and config; host-recode CHES, BGMW95 and stock Pippenger, BGMW
      and stock with both bucket strategies (prefix, segmented), each query
      checked against the oracle; the plan build and each path count their
-     launches on their own: every kernel of the path (K5's two variants on
-     the segmented ones, K9 on all) launched, none of the other strategy's,
-     K3 (prefix paths) at stream_shape's level shapes; each query path
-     prints its K2 dadd, K9 and K4 launches a query, and those of K2's
-     boundary and Horner launches; a CHES path launches each of these once
-     a query and no K2 dadd or double of its own;
+     launches on their own: every kernel of the path (K5's level and scan
+     on the segmented ones, K9 on all) launched, none of the other
+     strategy's, K3 (prefix paths) at stream_shape's level shapes and K5's
+     level (segmented paths) at seg_level_shape's, K5's level and scan once
+     a bucket pass; each query path prints its K2 dadd, K9, K4 and K5
+     launches a query, and those of K2's boundary and Horner launches; a
+     CHES path launches each of these once a query and no K2 dadd or
+     double of its own;
   7. g2: phases 5 and 6 over G2 at the same n and config (the SOS query
      on two scalar sets), each path launching the G2 kernels (and K1 or
      K6, which Fp2's products run through) and none of the G1 point and
@@ -191,9 +198,9 @@ def phase_build():
 
 
 def check_occupancy():
-    """K3's and K4's kernels must keep the resident blocks an SM that the
-    host's wave (msm/scan.py FOLD_WAVE blocks on 132 SMs) counts on, K2's
-    wide kernels the blocks their launch bounds ask for."""
+    """K3's, K4's and K5's kernels must keep the resident blocks an SM that
+    the host's wave (msm/scan.py FOLD_WAVE blocks on 132 SMs) counts on,
+    K2's wide kernels the blocks their launch bounds ask for."""
     from msm_blst_tpu_torch import kernels
     from msm_blst_tpu_torch.msm import scan
 
@@ -352,8 +359,8 @@ def gather_timers(d):
 def curve_kernels(dev, case, record):
     """K2 at 2^16 lanes, K3 at the paths' level shapes, K4 and K9 over K3's
     local prefixes at the CHES level (the query paths' stream lengths; the
-    CHES integration's gap groups) and K5 at BGMW's first two levels, for
-    one curve."""
+    CHES integration's gap groups) and K5 at the segmented paths' shapes,
+    for one curve."""
     from msm_blst_tpu_torch.curves import cuda_point
     from msm_blst_tpu_torch.msm import fixed_point_list
 
@@ -393,7 +400,7 @@ def curve_kernels(dev, case, record):
     # K2's bucket boundaries on a CONFIGS[16] recode's level
     boundary_kernel(dev, case, record, pts)
 
-    # K5 at BGMW's first two levels: (60, 16384) and (32, 1024)
+    # K5 at the segmented paths' shapes: a stock window's, then BGMW's
     phase_seg_kernels(dev, case, record, curve.to_rows32(pts).XY,
                       np.random.default_rng(13))
 
@@ -758,18 +765,34 @@ def boundary_kernel(dev, case, record, pts):
            20, 1, n_bytes, (firsts + seconds) * case.mont(DADD))
 
 
-def seg_work(keys, n_buckets: int, in_bytes: int, mont_add: int,
-             elem_bytes: int = FP_BYTES):
-    """(bytes, Montgomery products) of one K5 level on these keys: every
-    element read once; each lane writes head, tail and two keys; every
-    complete run one bucket; a column that keeps its run adds a point."""
+def seg_level_work(keys, n_buckets: int, in_bytes: int, mont_add: int,
+                   elem_bytes: int = FP_BYTES):
+    """(bytes, Montgomery products) of K5's level on these keys: every
+    element read once; each lane writes its head and tail with their keys;
+    every complete run one bucket; a column that keeps its run adds a
+    point."""
     c, n_ch = keys.shape
     closing = keys[1:] != keys[:-1]
     lanes_closing = int(closing.any(dim=0).sum())
     emissions = int(closing.sum()) - lanes_closing
-    n_bytes = (c * n_ch * (in_bytes + 4) + n_ch * (8 * elem_bytes + 8)
+    n_bytes = (c * n_ch * (in_bytes + 4) + 2 * n_ch * (4 * elem_bytes + 4)
                + 4 * elem_bytes * emissions)
     return n_bytes, mont_add * int((~closing).sum())
+
+
+def seg_scan_work(keys, n_buckets: int, mont_add: int, elem_bytes: int):
+    """(bytes, Montgomery products, longest run) of K5's scan on these
+    keys: every element and key read once, each run that reaches a bucket
+    written once; one add for every element that continues a run."""
+    ends = torch.ones_like(keys, dtype=torch.bool)
+    ends[:-1] = keys[:-1] != keys[1:]
+    runs = int(ends.sum())
+    stored = int((ends & (keys >= 0) & (keys < n_buckets)).sum())
+    at = torch.nonzero(ends)[:, 0]
+    longest = int(torch.diff(at, prepend=at.new_full((1,), -1)).max())
+    M = keys.shape[0]
+    return (M * (4 * elem_bytes + 4) + 4 * elem_bytes * stored,
+            mont_add * (M - runs), longest)
 
 
 def seg_stream(rng, n_rows: int, N: int, c: int, n_buckets: int):
@@ -779,9 +802,9 @@ def seg_stream(rng, n_rows: int, N: int, c: int, n_buckets: int):
     cancellation. At the boundaries of lanes 100 and 300 (c columns each) a
     key of its own holds one point four times, two in each lane: lane k's
     tail and lane k+1's head are 2P and 2P (lane 100) or 2P and -2P (lane
-    300), which the next level adds: a doubling and a cancellation there.
-    Returns the stream and those two pairs' positions in the next level's
-    stream of interleaved heads and tails."""
+    300), which the scan adds: a doubling and a cancellation there.
+    Returns the stream and those two pairs' positions in the next stream
+    of interleaved heads and tails."""
     slots = rng.integers(0, n_rows, N)
     keys = np.sort(rng.integers(0, n_buckets, N))
     signs = rng.integers(0, 2, N)
@@ -802,85 +825,161 @@ def seg_stream(rng, n_rows: int, N: int, c: int, n_buckets: int):
     return slots, keys.astype(np.int32), signs.astype(np.int32), meets
 
 
+def seg_paths():
+    """The segmented paths' K5 streams at n = 2^16 (CONFIGS[16]): (digits,
+    buckets) of a stock window (window 13) and of BGMW (c' = 17, h' = 15),
+    BGMW last."""
+    from msm_blst_tpu_torch.msm import params
+    from msm_blst_tpu_torch.msm.engine import pippenger_window_size
+
+    cfg = params.CONFIGS[N_LOG]
+    n = 1 << N_LOG
+    return {"stock": (n, (1 << (pippenger_window_size(n) - 1)) + 1),
+            "bgmw": (n * cfg.h_bgmw, (cfg.q_bgmw >> 1) + 1)}
+
+
 def phase_seg_kernels(dev, case, record, rows, rng):
-    """K5 against its plain version at the first two levels of BGMW's path
-    (n = 2^16, c' = 17, h' = 15: 983,040 digits over 2^16+1 buckets): the
-    affine level (c=60, n_ch=16384) on real table rows (seg_stream), and
-    the xyzz level (32, 1024) on that level's own heads and tails, shaped by
-    the path's own code (cuda_scan.level_cols). The bucket arrays must agree
-    too."""
-    from msm_blst_tpu_torch.curves import PackedRows32
-    from msm_blst_tpu_torch.msm import cuda_scan
+    """K5 against its plain version at the segmented paths' own shapes
+    (seg_paths; cuda_scan.seg_level_shape, as the paths shape them): the
+    affine level on real table rows (seg_stream), then the segmented scan
+    on that level's own heads and tails, its bucket array included. The
+    JSON line keeps BGMW's measurements (recorded last) and every path's
+    under "shapes"; the print lines give the depth model (the level's c
+    mixed adds, K3's one add as the unit; the scan's schedule depth and
+    the stream's longest run, K4's one add as the unit) and the resident
+    blocks of K5's five kernels."""
+    from msm_blst_tpu_torch import kernels
+    from msm_blst_tpu_torch.curves import PackedRows32, XyzzPoint
+    from msm_blst_tpu_torch.msm import cuda_scan, scan
 
     curve, E = case.curve, case.elem_bytes
-    n_buckets = (1 << 16) + 1
-    slots, keys, signs, meets = seg_stream(rng, rows.shape[0], 60 * 16384,
-                                           60, n_buckets)
-    stream = PackedRows32(rows.index_select(0, torch.as_tensor(slots,
-                                                               device=dev)))
-    sg = torch.as_tensor(signs, device=dev)
-    ky = torch.as_tensor(keys, device=dev)
-    level1 = cuda_scan.level_cols(curve, stream, sg, ky, n_buckets)
-    nxt, nkeys = cuda_scan._run_level(
-        curve, stream, sg, ky, cuda_scan.bucket_array(curve, n_buckets, dev),
-        n_buckets)
-    for m in meets:  # the pair the xyzz level doubles or cancels
-        if nkeys[m] != nkeys[m + 1] or not torch.equal(nxt.X[..., m],
-                                                       nxt.X[..., m + 1]):
-            raise AssertionError(f"seg_level_xyzz input: no meeting pair at {m}")
-    level2 = cuda_scan.level_cols(curve, nxt, None, nkeys, n_buckets)
-    for (_, _, kc), shape in ((level1, (60, 16384)), (level2, (32, 1024))):
-        if tuple(kc.shape) != shape:
-            raise AssertionError(f"K5 level shape {tuple(kc.shape)} != {shape}")
+    blocks = kernels.occupancy(curve.name, "seg_level_affine")
+    madd_ms = one_lane_madd_ms(curve, rows)
+    shapes = {"seg_level_affine": [], "seg_scan": []}
+    last = {}  # each op's entry in the JSON line: BGMW's, recorded last
+    for path, (N, n_buckets) in seg_paths().items():
+        c, n_ch = cuda_scan.seg_level_shape(N)
+        if n_ch > scan.FOLD_WAVE * scan.FOLD_THREADS:
+            raise AssertionError(f"K5 {path}: {n_ch} lanes exceed one wave")
+        slots, keys, signs, meets = seg_stream(rng, rows.shape[0], N, c,
+                                               n_buckets)
+        stream = PackedRows32(rows.index_select(
+            0, torch.as_tensor(slots, device=dev)))
+        cols, sg, kc = cuda_scan.level_cols(
+            curve, stream, torch.as_tensor(signs, device=dev),
+            torch.as_tensor(keys, device=dev), n_buckets)
+        if tuple(kc.shape) != (c, n_ch):
+            raise AssertionError(f"K5 level shape {tuple(kc.shape)} != {(c, n_ch)}")
+        level_buckets = cuda_scan.bucket_array(curve, n_buckets, dev)
+        nxt, nkeys = cuda_scan.seg_level(curve, cols, sg, kc, level_buckets,
+                                         n_buckets)
+        for m in meets:  # the pair the scan doubles or cancels
+            if nkeys[m] != nkeys[m + 1] or not torch.equal(nxt.X[..., m],
+                                                           nxt.X[..., m + 1]):
+                raise AssertionError(f"K5 scan input: no meeting pair at {m}")
 
-    def runs(cols, sg, kc, n_buckets, fn):
-        # the emission stores are idempotent, so repeated calls may share
-        # one bucket array
-        buckets = cuda_scan.bucket_array(curve, n_buckets, dev)
+        def level(fn):
+            # the stores are idempotent, so repeated calls share one array
+            buckets = cuda_scan.bucket_array(curve, n_buckets, dev)
 
-        def go():
-            head, tail, hk, tk = fn(curve, cols, sg, kc, buckets, n_buckets)
-            return tuple(buckets) + tuple(head) + tuple(tail) + (hk, tk)
-        return go
+            def go():
+                out, out_key = fn(curve, cols, sg, kc, buckets, n_buckets)
+                return tuple(buckets) + tuple(out) + (out_key,)
+            return go
 
-    for op, (cols, sg, kc), in_bytes, formula in (
-            ("seg_level_affine", level1, 2 * E + 4, DADD_AFFINE),
-            ("seg_level_xyzz", level2, 4 * E, DADD)):
-        record(case.name(op),
-               runs(cols, sg, kc, n_buckets, cuda_scan.seg_level),
-               runs(cols, sg, kc, n_buckets, cuda_scan.seg_level_plain), 5, 1,
-               *seg_work(kc, n_buckets, in_bytes, case.mont(formula), E))
+        def scan_run(fn):
+            buckets = XyzzPoint(*(b.clone() for b in level_buckets))
+
+            def go():
+                fn(curve, nxt, nkeys, buckets, n_buckets)
+                return tuple(buckets)
+            return go
+
+        r = record(case.name("seg_level_affine"), level(cuda_scan.seg_level),
+                   level(cuda_scan.seg_level_plain), 5, 1,
+                   *seg_level_work(kc, n_buckets, 2 * E + 4,
+                                   case.mont(DADD_AFFINE), E))
+        r.update(path=path, c=c, n_ch=n_ch)
+        shapes["seg_level_affine"].append(dict(r))
+        last["seg_level_affine"] = r
+        print(f"kernel {case.name('seg_level_affine')} {path} (c, n_ch)=({c}, "
+              f"{n_ch}): {-(-n_ch // 128)} blocks, depth {c} adds x one mixed "
+              f"add (K3's) {madd_ms:.4f} ms = {c * madd_ms:.4f} ms; resident "
+              f"blocks an SM (level, scan one-block, up, carry, down) {blocks}")
+        M = nkeys.shape[0]
+        sched = scan.scan_schedule(M)
+        n_bytes, n_mont, longest = seg_scan_work(nkeys, n_buckets,
+                                                 case.mont(DADD), E)
+        r = record(case.name("seg_scan"), scan_run(cuda_scan.seg_scan),
+                   scan_run(cuda_scan.seg_scan_plain), 10, 1, n_bytes, n_mont)
+        r.update(path=path, M=M)
+        shapes["seg_scan"].append(dict(r))
+        last["seg_scan"] = r
+        dadd_ms = one_lane_dadd_ms(curve, nxt)
+        depth = scan.scan_depth(sched)
+        print(f"kernel {case.name('seg_scan')} {path} M={M}: (k, tiles, "
+              f"k_carry) {tuple(sched)}, {1 if sched.n_tiles == 1 else 3} grid "
+              f"launch(es) a call, depth at most {depth} adds, longest run "
+              f"{longest}; one add (fp.cuh's product) {dadd_ms:.4f} ms: "
+              f"{depth * dadd_ms:.4f} ms at most")
+    for op, r in last.items():
+        r["shapes"] = shapes[op]
 
 
 LEVEL_SHAPES = set()  # the (c, n_ch) of each K3 call since reset_counts
+SEG_SHAPES = set()  # and of each K5 level
 
 
 def spy_level_shapes():
-    """Record the (c, n_ch) of every K3 call the paths make in
-    LEVEL_SHAPES (the prefix pipeline calls cuda_scan.affine_prefix_level
-    through the module)."""
+    """Record the (c, n_ch) of every K3 call the paths make in LEVEL_SHAPES
+    and of every K5 level in SEG_SHAPES (the pipelines call
+    cuda_scan.affine_prefix_level and cuda_scan.seg_level through the
+    module)."""
     from msm_blst_tpu_torch.msm import cuda_scan
 
     level = cuda_scan.affine_prefix_level
+    seg = cuda_scan.seg_level
 
     def spy(curve, rows_x, rows_y, sgn_cols):
         LEVEL_SHAPES.add(tuple(sgn_cols.shape))
         return level(curve, rows_x, rows_y, sgn_cols)
+
+    def seg_spy(curve, cols, signs, keys, buckets, n_buckets):
+        SEG_SHAPES.add(tuple(keys.shape))
+        return seg(curve, cols, signs, keys, buckets, n_buckets)
     cuda_scan.affine_prefix_level = spy
+    cuda_scan.seg_level = seg_spy
 
 
-def check_level_shapes(path: str, N: int):
-    """The path's K3 launches took the level shape stream_shape gives its
-    stream of N elements, within one wave of K3's lanes."""
-    from msm_blst_tpu_torch.msm import prefix_pipeline, scan
+def check_level_shapes(path: str, N: int, impl: str = "prefix"):
+    """The path's level launches (K3 for the prefix strategy, K5's level for
+    the segmented one) took the shape stream_shape or seg_level_shape gives
+    its stream of N elements, within one wave of the level's lanes."""
+    from msm_blst_tpu_torch.msm import cuda_scan, prefix_pipeline, scan
 
-    want = prefix_pipeline.stream_shape(N)
-    print(f"{path}: K3 level shapes {sorted(LEVEL_SHAPES)} (stream of {N})")
-    if LEVEL_SHAPES != {want}:
-        raise AssertionError(f"{path}: K3 ran at {sorted(LEVEL_SHAPES)}, "
-                             f"not {want}")
+    if impl == "prefix":
+        kernel, got, want = "K3", LEVEL_SHAPES, prefix_pipeline.stream_shape(N)
+    else:
+        kernel, got, want = "K5", SEG_SHAPES, cuda_scan.seg_level_shape(N)
+    print(f"{path}: {kernel} level shapes {sorted(got)} (stream of {N})")
+    if got != {want}:
+        raise AssertionError(f"{path}: {kernel} ran at {sorted(got)}, not "
+                             f"{want}")
     if want[1] > scan.FOLD_WAVE * scan.FOLD_THREADS:
         raise AssertionError(f"{path}: {want[1]} lanes exceed one wave")
+
+
+def check_seg_launches(path: str, case, launches: dict, queries: int,
+                       streams: int) -> None:
+    """A segmented path launched K5's level and its scan once for each of
+    the `streams` bucket passes of each query (one C call of the scan: one
+    grid launch, or three)."""
+    got = {op: launches[case.name(op)] for op in STRATEGY_KERNELS["segmented"]}
+    print(f"{path}: K5 launches {got} ({queries} queries of {streams} bucket "
+          "passes)")
+    if set(got.values()) != {queries * streams}:
+        raise AssertionError(f"{path}: K5 launched {got}, not "
+                             f"{queries * streams} each")
 
 
 def counters():
@@ -896,6 +995,7 @@ def reset_counts():
     for k in counters().values():
         k.launches = 0
     LEVEL_SHAPES.clear()
+    SEG_SHAPES.clear()
 
 
 def read_counts(path: str, names, unused=()) -> dict:
@@ -923,7 +1023,7 @@ QUERY_KERNELS = ["xyzz_prefix_scan", "xyzz_fold"]
 INTEGRATION_KERNELS = {"gapped": ["point_gap_horner"],
                        "weighted": ["point_dadd", "point_double"]}
 STRATEGY_KERNELS = {"prefix": ["affine_prefix_level", "point_bucket_diffs"],
-                    "segmented": ["seg_level_affine", "seg_level_xyzz"]}
+                    "segmented": ["seg_level_affine", "seg_scan"]}
 # K2's formula launches, which a CHES query no longer makes of its own
 K2_FORMULAS = ["point_dadd_affine", "point_dadd", "point_double"]
 # K2's launches a CHES query makes: each once a query
@@ -974,12 +1074,13 @@ def check_ches_k2(path: str, case, launches: dict, queries: int,
 
 def per_query(path: str, case, launches: dict, queries: int,
               before=None) -> None:
-    """The path's K2 dadd, K9 and K4 launches a query and K2's boundary
-    and Horner launches (less those counted in `before`, a snapshot taken
-    before the queries)."""
+    """The path's K2 dadd, K9 and K4 launches a query, K2's boundary and
+    Horner launches and K5's (less those counted in `before`, a snapshot
+    taken before the queries)."""
     for name in (case.name("point_dadd"), case.name("xyzz_fold"),
                  case.name("xyzz_prefix_scan"),
-                 *(case.name(op) for op in CHES_K2)):
+                 *(case.name(op) for op in CHES_K2),
+                 *(case.name(op) for op in STRATEGY_KERNELS["segmented"])):
         n = launches[name] - (before or {}).get(name, 0)
         print(f"{path}: {name} launches a query: {n / queries:g}")
 
@@ -1063,6 +1164,7 @@ def phase_algorithms(dev, case, seeds):
     from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
                                         msm_bgmw_device, msm_ches_host_recode,
                                         msm_stock_pippenger, params, recode)
+    from msm_blst_tpu_torch.msm.engine import pippenger_window_size
 
     curve = case.curve
     label = f"{curve.name} algorithms"
@@ -1084,22 +1186,24 @@ def phase_algorithms(dev, case, seeds):
             case, ["point_dadd_affine", "point_dadd", "point_double"]))}
     stock_seeds = seeds[:max(1, len(seeds) - 1)]
     # (name, integration, bucket strategy, query, timed seeds, digits a
-    # bucket pass)
+    # bucket pass, bucket passes a query)
+    windows = -(-256 // pippenger_window_size(n))  # stock's (nbits 255)
     queries = [
         ("ches_host_recode", "gapped", "prefix", lambda s: msm_ches_host_recode(
-            plan, host[s], bucket_impl="prefix"), seeds, n * cfg.h),
+            plan, host[s], bucket_impl="prefix"), seeds, n * cfg.h, 1),
         ("bgmw_prefix", "weighted", "prefix", lambda s: msm_bgmw_device(
-            plan, scalars[s], bucket_impl="prefix"), seeds, n * cfg.h_bgmw),
+            plan, scalars[s], bucket_impl="prefix"), seeds, n * cfg.h_bgmw, 1),
         ("bgmw_segmented", "weighted", "segmented", lambda s: msm_bgmw_device(
-            plan, scalars[s], bucket_impl="segmented"), seeds, None),
+            plan, scalars[s], bucket_impl="segmented"), seeds,
+         n * cfg.h_bgmw, 1),
         ("stock_prefix", "weighted", "prefix", lambda s: msm_stock_pippenger(
-            plan, scalars[s], bucket_impl="prefix"), stock_seeds, n),
+            plan, scalars[s], bucket_impl="prefix"), stock_seeds, n, windows),
         ("stock_segmented", "weighted", "segmented",
          lambda s: msm_stock_pippenger(plan, scalars[s],
                                        bucket_impl="segmented"),
-         stock_seeds, None),
+         stock_seeds, n, windows),
     ]
-    for name, integration, impl, query, qseeds, stream in queries:
+    for name, integration, impl, query, qseeds, stream, passes in queries:
         reset_counts()
         check(WARM_SEED, query(WARM_SEED))
         times = []
@@ -1121,10 +1225,13 @@ def phase_algorithms(dev, case, seeds):
             f"{label} {name}", *path_kernels(
                 case, query_kernels(integration, impl), impl,
                 unused_ops=other))
-        if stream is not None:
-            check_level_shapes(f"{label} {name}", stream)
+        check_level_shapes(f"{label} {name}", stream, impl)
         per_query(f"{label} {name}", case, paths[f"{curve.name}_{name}"],
                   1 + len(qseeds))
+        if impl == "segmented":
+            check_seg_launches(f"{label} {name}", case,
+                               paths[f"{curve.name}_{name}"], 1 + len(qseeds),
+                               passes)
         if integration == "gapped":
             check_ches_k2(f"{label} {name}", case,
                           paths[f"{curve.name}_{name}"], 1 + len(qseeds))

@@ -561,122 +561,4 @@ MSM_HD void dadd_affine_elem(XyzzCols p1, const uint32_t* x2, const uint32_t* y2
   store_xyzz(o, r, n, i);
 }
 
-// K5, lane k: one level of the segmented bucket reduction down c columns
-// of a key-sorted stream (msm_blst_tpu/msm/pallas_scan.py:149-234). A key
-// change closes the run: the run that touched column 0 becomes the lane's
-// head, any other run is complete and is stored into the bucket array at
-// its key (keys >= n_buckets are pads or "no bucket" and are skipped);
-// otherwise the column's point is added to the run. The head is stored as
-// soon as it closes (infinity if it never does), so only the run stays in
-// registers. The column sources below lift and add one stream element.
-
-// Affine stream in K3's row layout: rows (c, n_ch, W) words, signs (c, n_ch).
-template <class F>
-struct SegAffineSrc {
-  const uint32_t *rows_x, *rows_y;
-  const int32_t* signs;
-  int64_t n_ch;
-
-  MSM_HD void load(AffT<F>& p, bool& sub, int j, int64_t k) const {
-    int64_t e = (int64_t)j * n_ch + k;
-    load_row(p.x, rows_x + e * Words<F>::value);
-    load_row(p.y, rows_y + e * Words<F>::value);
-    sub = signs[e] != 0;
-  }
-  MSM_HD void lift(XyzzT<F>& run, int j, int64_t k) const {
-    AffT<F> p;
-    bool sub;
-    load(p, sub, j, k);
-    xyzz_from_affine(run, p, sub);
-  }
-  MSM_HD void add(XyzzT<F>& run, int j, int64_t k) const {
-    AffT<F> p;
-    bool sub;
-    load(p, sub, j, k);
-    xyzz_dadd_affine(run, run, p, sub);
-  }
-};
-
-// Xyzz stream in column layout: coordinates (c, W, n_ch); column j of lane
-// k is element k of batch j.
-template <class F>
-struct SegXyzzSrc {
-  XyzzCols in;
-  int64_t n_ch;
-
-  MSM_HD void lift(XyzzT<F>& run, int j, int64_t k) const {
-    const int64_t col = (int64_t)j * Words<F>::value * n_ch;
-    XyzzCols cj = {in.x + col, in.y + col, in.zzz + col, in.zz + col};
-    load_xyzz(run, cj, n_ch, k);
-  }
-  MSM_HD void add(XyzzT<F>& run, int j, int64_t k) const {
-    XyzzT<F> p;
-    lift(p, j, k);
-    xyzz_dadd(run, run, p);
-  }
-};
-
-// keys: (c, n_ch); buckets: four [W, n_buckets] batches, updated in place;
-// head/tail: four [W, n_ch] batches; head_key/tail_key: (n_ch,).
-template <class F, class Src>
-MSM_HD void seg_level_lane(const Src& src, const int32_t* keys,
-                           XyzzColsOut buckets, int64_t n_buckets,
-                           XyzzColsOut head, XyzzColsOut tail,
-                           int32_t* head_key, int32_t* tail_key, int c,
-                           int64_t n_ch, int64_t k) {
-  XyzzT<F> run;
-  src.lift(run, 0, k);
-  int32_t run_key = keys[k];
-  int32_t hk = run_key;
-  bool from0 = true;
-  for (int j = 1; j < c; ++j) {
-    int32_t ky = keys[(int64_t)j * n_ch + k];
-    if (ky != run_key) {
-      if (from0) {
-        store_xyzz(head, run, n_ch, k);
-        hk = run_key;
-        from0 = false;
-      } else if ((uint32_t)run_key < (uint64_t)n_buckets) {
-        store_xyzz(buckets, run, n_buckets, run_key);
-      }
-      src.lift(run, j, k);
-    } else {
-      src.add(run, j, k);
-    }
-    run_key = ky;
-  }
-  if (from0) {  // one run down the whole lane: the head stays infinity
-    XyzzT<F> inf;
-    xyzz_set_inf(inf);
-    store_xyzz(head, inf, n_ch, k);
-    hk = run_key;
-  }
-  head_key[k] = hk;
-  tail_key[k] = run_key;
-  store_xyzz(tail, run, n_ch, k);
-}
-
-template <class F>
-MSM_HD void seg_level_affine_lane(const uint32_t* rows_x, const uint32_t* rows_y,
-                                  const int32_t* signs, const int32_t* keys,
-                                  XyzzColsOut buckets, int64_t n_buckets,
-                                  XyzzColsOut head, XyzzColsOut tail,
-                                  int32_t* head_key, int32_t* tail_key, int c,
-                                  int64_t n_ch, int64_t k) {
-  SegAffineSrc<F> src = {rows_x, rows_y, signs, n_ch};
-  seg_level_lane<F>(src, keys, buckets, n_buckets, head, tail, head_key, tail_key,
-                 c, n_ch, k);
-}
-
-template <class F>
-MSM_HD void seg_level_xyzz_lane(XyzzCols in, const int32_t* keys,
-                                XyzzColsOut buckets, int64_t n_buckets,
-                                XyzzColsOut head, XyzzColsOut tail,
-                                int32_t* head_key, int32_t* tail_key, int c,
-                                int64_t n_ch, int64_t k) {
-  SegXyzzSrc<F> src = {in, n_ch};
-  seg_level_lane<F>(src, keys, buckets, n_buckets, head, tail, head_key, tail_key,
-                 c, n_ch, k);
-}
-
 }  // namespace msm

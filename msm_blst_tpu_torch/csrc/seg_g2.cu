@@ -1,5 +1,6 @@
 // K5 for G2 (coordinates in Fp2: 24-word row halves, [2, 12, n] columns):
-// the C entry points of seg.cuh.
+// the C entry points of seg.cuh (the affine level) and seg_scan.cuh (the
+// segmented block scan).
 
 #include "seg.cuh"
 
@@ -8,27 +9,28 @@ using msm::Fp2;
 extern "C" int msm_g2_seg_level_affine(const void* rows_x, const void* rows_y,
                                        const void* signs, const void* keys,
                                        void* bx, void* by, void* bzzz,
-                                       void* bzz, int64_t n_buckets, void* hx,
-                                       void* hy, void* hzzz, void* hzz,
-                                       void* tx, void* ty, void* tzzz,
-                                       void* tzz, void* head_key,
-                                       void* tail_key, int c, int64_t n_ch,
+                                       void* bzz, int64_t n_buckets, void* ox,
+                                       void* oy, void* ozzz, void* ozz,
+                                       void* out_key, int c, int64_t n_ch,
                                        void* stream) {
-  return msm::seg::seg_level_affine<Fp2>(
-      rows_x, rows_y, signs, keys, bx, by, bzzz, bzz, n_buckets, hx, hy, hzzz,
-      hzz, tx, ty, tzzz, tzz, head_key, tail_key, c, n_ch, stream);
+  return msm::seg::seg_level_affine<Fp2>(rows_x, rows_y, signs, keys, bx, by,
+                                         bzzz, bzz, n_buckets, ox, oy, ozzz,
+                                         ozz, out_key, c, n_ch, stream);
 }
 
-extern "C" int msm_g2_seg_level_xyzz(const void* x, const void* y,
-                                     const void* zzz, const void* zz,
-                                     const void* keys, void* bx, void* by,
-                                     void* bzzz, void* bzz, int64_t n_buckets,
-                                     void* hx, void* hy, void* hzzz, void* hzz,
-                                     void* tx, void* ty, void* tzzz, void* tzz,
-                                     void* head_key, void* tail_key, int c,
-                                     int64_t n_ch, void* stream) {
-  return msm::seg::seg_level_xyzz<Fp2>(x, y, zzz, zz, keys, bx, by, bzzz, bzz,
-                                       n_buckets, hx, hy, hzzz, hzz, tx, ty,
-                                       tzzz, tzz, head_key, tail_key, c, n_ch,
-                                       stream);
+extern "C" int msm_g2_seg_scan(const void* x, const void* y, const void* zzz,
+                               const void* zz, const void* keys, void* bx,
+                               void* by, void* bzzz, void* bzz,
+                               int64_t n_buckets, void* scratch, int64_t n,
+                               int64_t n_tiles, int k, int k_carry,
+                               void* stream) {
+  return msm::seg::seg_scan<Fp2>(x, y, zzz, zz, keys, bx, by, bzzz, bzz,
+                                 n_buckets, scratch, n, n_tiles, k, k_carry,
+                                 stream);
+}
+
+// The resident blocks an SM of K5's five kernels as built: the level, the
+// scan's one-block kernel, up, carry and down.
+extern "C" int msm_g2_seg_occupancy(int* blocks) {
+  return msm::seg::occupancy<Fp2>(blocks);
 }

@@ -14,7 +14,7 @@ kernel. The table of them is here, in one place: K1 (`MONT_MUL`), each
 curve's K2-K5 and K9 (`CURVE_KERNELS`), K6's stages (`SOS_MUL`), the
 measurement drivers' K7 (`MADD_CHAIN`, by dtype) and K8 (`GATHER_SMEM`),
 with the name a run reports each under, its C symbol and its source;
-`occupancy` reads K2's, K3's and K4's resident blocks an SM and
+`occupancy` reads K2's, K3's, K4's and K5's resident blocks an SM and
 `point_min_blocks` the blocks K2's launch bounds ask for (K8's cluster
 capacity: `drivers/gather_bench.py` `cluster_capacity`).
 """
@@ -218,10 +218,14 @@ _CURVE_OPS = {
                          [_P] * 8 + [_I64, _I32]),
     "affine_prefix_level": ("affine_prefix_level", "scan",
                             [_P] * 8 + [_I32, _I64]),
+    # K5's affine level: rows, signs, keys, buckets; n_buckets; the next
+    # stream and its keys; c, n_ch
     "seg_level_affine": ("seg_level_affine", "seg",
-                         [_P] * 8 + [_I64] + [_P] * 10 + [_I32, _I64]),
-    "seg_level_xyzz": ("seg_level_xyzz", "seg",
-                       [_P] * 9 + [_I64] + [_P] * 10 + [_I32, _I64]),
+                         [_P] * 8 + [_I64] + [_P] * 5 + [_I32, _I64]),
+    # K5's segmented block scan: the stream, its keys, buckets; n_buckets;
+    # scratch; n, n_tiles, k, k_carry
+    "seg_scan": ("seg_scan", "seg",
+                 [_P] * 9 + [_I64, _P, _I64, _I64, _I32, _I32]),
     "xyzz_fold": ("xyzz_fold", "fold", [_P] * 10 + [_I64, _I64, _I32]),
     "xyzz_prefix_scan": ("xyzz_prefix_scan", "block_scan",
                          [_P] * 9 + [_I64, _I64, _I32, _I32]),
@@ -254,14 +258,16 @@ MADD_CHAIN = {dtype: Kernel(f"madd_chain_{dtype}", "madd_chain",
 # cluster: table, idx, out, T, N
 GATHER_SMEM = Kernel("gather_smem", "gather_smem", "msm_gather_smem",
                      "gather_smem.cu", [_P] * 3 + [_I64, _I64])
-# The occupancy queries of K2, K3 and K4, by op: each writes the resident
-# blocks an SM of the op's kernels as built (K2's dadd_affine, dadd, double
-# and bucket_diffs; K3's one; K4's tile_scan, tile_up and tile_down), into
+# The occupancy queries of K2, K3, K4 and K5, by op: each writes the
+# resident blocks an SM of the op's kernels as built (K2's dadd_affine,
+# dadd, double and bucket_diffs; K3's one; K4's tile_scan, tile_up and
+# tile_down; K5's level and its scan's one-block, up, carry and down), into
 # an int array of that length, from the C function msm_[<tag>_]<symbol> in
 # the op's source.
 OCCUPANCY = {"point_bucket_diffs": ("point_occupancy", 4),
              "affine_prefix_level": ("affine_prefix_occupancy", 1),
-             "xyzz_prefix_scan": ("xyzz_prefix_scan_occupancy", 3)}
+             "xyzz_prefix_scan": ("xyzz_prefix_scan_occupancy", 3),
+             "seg_level_affine": ("seg_occupancy", 5)}
 
 
 def occupancy_symbol(curve: str, op: str) -> str:

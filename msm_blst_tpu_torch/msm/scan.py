@@ -27,9 +27,11 @@ stream is cut into contiguous chunks. In a chunk, runs strictly inside it
 and not touching column 0 are complete and are stored at their key; the run
 touching column 0 becomes the chunk's HEAD when it closes (infinity with the
 run's key if the whole chunk is one run); the run open at the last column
-is its TAIL. The interleaved (head, tail) stream is still key-sorted and is
-reduced again, so the pieces of a key that spans chunks meet there. Each key
-is stored by exactly one level, so the stores never collide.
+is its TAIL. The interleaved (head, tail) stream is still key-sorted; the
+JAX package reduces it again by more such levels, the port by one segmented
+scan (K5's second part, cuda_scan.seg_scan), so the pieces of a key that
+spans chunks meet there. Each key is stored once, by the level or by the
+scan, so the stores never collide.
 """
 
 from __future__ import annotations
@@ -44,7 +46,6 @@ import torch
 from ..curves.ops import XyzzPoint
 from ..kernels import CURVE_KERNELS, check_cuda, on_cpu, ptr
 from ..utils import scans
-from . import cuda_scan
 
 # K9's and K4's block (csrc/fold.cuh and block_scan.cuh THREADS), and the
 # blocks that fill the H100 in one wave: 132 SMs, two blocks of 128 threads
@@ -392,29 +393,9 @@ def segmented_reduce_affine(curve, pts, signs, keys,
     """Per-key sums of a key-sorted stream of signed affine points as an
     xyzz bucket array of n_buckets (bucket 0 included). `pts`: an
     AffinePoint (*F.lead, N) or its PackedRows32 rows (N, 2W); keys ascending,
-    entries with key >= n_buckets are dropped. K5 levels first
-    (cuda_scan.segmented_reduce, the JAX package's fused structure), then
-    _segmented_reduce_xyzz."""
+    entries with key >= n_buckets are dropped. K5: its affine level, then
+    its segmented scan over the level's heads and tails
+    (cuda_scan.segmented_reduce)."""
+    from . import cuda_scan
+
     return cuda_scan.segmented_reduce(curve, pts, signs, keys, n_buckets)
-
-
-def _segmented_reduce_xyzz(curve, pts: XyzzPoint, keys, buckets: XyzzPoint,
-                           n_buckets: int) -> XyzzPoint:
-    """The remaining levels over an xyzz stream of at least two elements
-    (the heads and tails of the affine level): more K5 levels
-    (cuda_scan._run_level; pick_chunk columns below MIN_LEVEL_N, as the JAX
-    package's unfused levels) until two elements are left, then the terminal
-    two-element merge. Complete runs are stored into `buckets` in place.
-    Returns `buckets`."""
-    while keys.shape[-1] > 2:
-        pts, keys = cuda_scan._run_level(curve, pts, None, keys, buckets,
-                                         n_buckets)
-    # terminal two-element stream: merge if one key, else store both
-    a = XyzzPoint(*(x[..., :1] for x in pts))
-    b = XyzzPoint(*(x[..., 1:] for x in pts))
-    same = keys[:1] == keys[1:]
-    second = curve.select(same, curve.xyzz_dadd(a, b), b)
-    cuda_scan.store_points(buckets, torch.where(same, n_buckets, keys[:1]), a,
-                           n_buckets)
-    cuda_scan.store_points(buckets, keys[1:], second, n_buckets)
-    return buckets

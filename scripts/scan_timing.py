@@ -1,6 +1,8 @@
-"""Time the whole inclusive xyzz prefix scan, `prefix_scan_xyzz`, and the
+"""Time the whole inclusive xyzz prefix scan, `prefix_scan_xyzz`, the
 whole prefix-scan bucket accumulation, `prefix_pipeline.bucket_sums_prefix`
-with K3 alone at its level, of one checkout of the port on the card.
+with K3 alone at its level, and the whole segmented bucket reduction,
+`scan.segmented_reduce_affine` (K5), of one checkout of the port on the
+card.
 
 Run from the repository root on a machine with a CUDA device:
 
@@ -31,10 +33,19 @@ host issue counts where it is slower than the card), on G1 and G2.
   reads a curve point without a plan build. Beside it, K3 alone
   (`cuda_scan.affine_prefix_level`) at the level shape the checkout's
   `prefix_pipeline.stream_shape` gives the stream, on the gathered rows.
+* `segmented_reduce_affine` (the segmented strategy's bucket sums: K5's
+  levels and whatever the checkout runs after them) on BGMW's and the
+  stock window's streams, from their gathered rows, as
+  `engine._bucket_sums_stream` hands them over; beside it K5's affine
+  level alone (`cuda_scan.seg_level`, whose arguments every checkout
+  shares) on those rows at the JAX package's level shape (BGMW (60,
+  16,384): 128 blocks, about one an SM; stock (32, 2,048)) and at this
+  checkout's (SEG_SHAPES: (30, 32,768), 256 blocks, two an SM; (4,
+  16,384)).
 
-Prints the card's name and power limit, the checkout's K3 registers and
-resident blocks (where it reports them), one line a measurement and one
-JSON object.
+Prints the card's name and power limit, the checkout's K3 and K5
+registers and the resident blocks of its kernels (where it reports them),
+one line a measurement and one JSON object.
 """
 
 from __future__ import annotations
@@ -49,6 +60,10 @@ import torch
 from timing_tools import ROOT, card, use_tree
 
 LENGTHS = (109243, 32768, 16384, 8192, 2048, 64)
+# K5's level shapes timed on each segmented stream: the JAX package's, then
+# cuda_scan.seg_level_shape's at CONFIGS[16]
+SEG_SHAPES = {"bgmw": ((60, 16384), (30, 32768)),
+              "stock": ((32, 2048), (4, 16384))}
 REPS = 10
 SEED = 0
 N_LOG = 16
@@ -104,12 +119,39 @@ def _streams(dev):
     return sorted_streams
 
 
+def _seg_level_ms(cuda_scan, curve, stream, signs, keys, n_buckets, c,
+                  n_ch):
+    """K5's affine level alone at (c, n_ch) on a key-sorted stream's rows
+    (N, 2W): the stream padded with infinity (key n_buckets) and cut into
+    n_ch lanes of c columns, as the level's callers cut it."""
+    from msm_blst_tpu_torch.utils.profiling import device_ms
+
+    W = curve.F.n_words
+    N = keys.shape[0]
+    pad = c * n_ch - N
+    rows = torch.cat([stream.XY, stream.XY.new_zeros((pad, 2 * W))])
+    g = rows.reshape(n_ch, c, 2 * W).transpose(0, 1)
+    cols = (g[..., :W].contiguous(), g[..., W:].contiguous())
+
+    def to_cols(x, fill):
+        x = torch.cat([x.to(torch.int32), x.new_full((pad,), fill,
+                                                     dtype=torch.int32)])
+        return x.reshape(n_ch, c).T.contiguous()
+
+    sg, kc = to_cols(signs, 0), to_cols(keys, n_buckets)
+    buckets = cuda_scan.bucket_array(curve, n_buckets, keys.device)
+    return device_ms(lambda: cuda_scan.seg_level(curve, cols, sg, kc, buckets,
+                                                 n_buckets), REPS)
+
+
 def _k3_report():
-    """The checkout's K3 registers (ptxas) and resident blocks an SM."""
+    """The checkout's K3 and K5 registers (ptxas) and resident blocks an
+    SM."""
     from msm_blst_tpu_torch import kernels
 
     out = {name: regs for name, regs in kernels.ptxas_summary().items()
-           if name.split()[0] in ("scan.cu", "scan_g2.cu")}
+           if name.split()[0] in ("scan.cu", "scan_g2.cu", "seg.cu",
+                                  "seg_g2.cu")}
     if hasattr(kernels, "occupancy"):
         for curve in kernels.CURVE_KERNELS:
             for op in kernels.OCCUPANCY:
@@ -128,7 +170,7 @@ def main():
     where, prefix_scan_xyzz = _scan_fn(tree)
     from msm_blst_tpu_torch.curves import G1, G2, PackedRows32, XyzzPoint
     from msm_blst_tpu_torch.msm import (cuda_scan, fixed_point_list,
-                                        prefix_pipeline)
+                                        prefix_pipeline, scan)
     from msm_blst_tpu_torch.utils.profiling import device_ms
 
     smi = card()
@@ -137,11 +179,11 @@ def main():
     dev = torch.device("cuda", 0)
     k3 = _k3_report()
     for name, v in k3.items():
-        print(f"K3/K4 {name}: {v}")
+        print(f"K3/K4/K5 {name}: {v}")
     rng = np.random.default_rng(SEED)
     report = {"tree": tree, "module": where,
               "card": smi, "k3": k3, "ms": {}, "bucket_sums_ms": {},
-              "k3_ms": {}}
+              "k3_ms": {}, "segmented_ms": {}}
     streams = _streams(dev)
     for curve in (G1, G2):
         fixed = fixed_point_list(curve, 1 << N_LOG, device=dev)
@@ -177,7 +219,24 @@ def main():
                   f"bucket_sums_prefix {ms:.4f} ms a call; K3 alone at "
                   f"(c, n_ch)=({c}, {n_ch}) {k3_ms:.4f} ms (device_ms, "
                   f"{REPS} calls)")
-            del table, rx, ry
+            del rx, ry
+            if name != "ches":
+                stream = PackedRows32(table.XY.index_select(
+                    0, slots.to(torch.int64)))
+                seg_ms = device_ms(lambda: scan.segmented_reduce_affine(
+                    curve, stream, signs, keys, n_buckets), REPS)
+                level_ms = {f"{c}x{n_ch}": _seg_level_ms(
+                    cuda_scan, curve, stream, signs, keys, n_buckets, c, n_ch)
+                    for c, n_ch in SEG_SHAPES[name]}
+                report["segmented_ms"][key] = {"whole": seg_ms,
+                                               "level": level_ms}
+                print(f"{curve.name} {name} N={N}: segmented_reduce_affine "
+                      f"{seg_ms:.4f} ms a call; K5's level alone " + ", ".join(
+                          f"({shape}) {ms:.4f} ms"
+                          for shape, ms in level_ms.items())
+                      + f" (device_ms, {REPS} calls)")
+                del stream
+            del table
     print(json.dumps(report))
     if args.out:
         with open(args.out, "w") as f:

@@ -22,7 +22,10 @@ ran them, each with its grid, its device time and the stage of the query
 that launched it: the bucket boundaries (`buckets_from_boundaries`, with
 K4's scan of the lane tails inside it apart), the d-gap integration
 (`integrate_gapped`, with its K4 suffix scan and K9 folds apart; the rest
-is its Horner combine) or the rest of the query. Then, by stage, the
+is its Horner combine), the segmented bucket reduction
+(`segmented_reduce_affine`, with its xyzz part apart: K5's segmented scan,
+or an older checkout's xyzz levels and two-element merge) or the rest of
+the query. Then, by stage, the
 device time of K2's launches, of the other hand-written kernels and of
 the torch ops (the glue). The stages are marked by wrapping those
 functions in `torch.profiler.record_function` from here, so an older
@@ -56,7 +59,13 @@ STAGES = (("prefix_pipeline", "buckets_from_boundaries", "boundaries"),
           ("prefix_pipeline", "prefix_scan_xyzz", "boundaries/K4 tails"),
           ("engine", "integrate_gapped", "integration"),
           ("engine", "suffix_scan_xyzz", "integration/K4 suffix"),
-          ("engine", "fold_segments", "integration/K9 folds"))
+          ("engine", "fold_segments", "integration/K9 folds"),
+          ("engine", "segmented_reduce_affine", "segmented"),
+          # the segmented reduction's xyzz stage: K5's chain of xyzz levels
+          # and the two-element merge in older checkouts, the segmented
+          # block scan in newer ones
+          ("scan", "_segmented_reduce_xyzz", "segmented/xyzz"),
+          ("cuda_scan", "seg_scan", "segmented/xyzz"))
 # The hand-written kernels by the namespace of their symbol in csrc/
 KERNEL_NS = (("point_ops::", "K2"), ("block_scan::", "K4"), ("fold::", "K9"),
              ("scan::", "K3"), ("mont", "K1"), ("sos", "K6"), ("seg", "K5"))

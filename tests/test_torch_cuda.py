@@ -281,49 +281,102 @@ def test_block_scan_kernel_matches_plain(dev, name, N):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def _seg_stream(curve, N, n_buckets, seed, dev):
+    """A key-sorted signed stream over n_buckets of 32 fixed points' rows:
+    a point four times in one run (a doubling), a cancellation, pads."""
+    from msm_blst_tpu_torch.curves import PackedRows32
+
+    rng = np.random.default_rng(seed)
+    rows = curve.to_rows32(_points(32, dev, curve.name)).XY
+    slots = rng.integers(0, 32, N)
+    keys = np.sort(rng.integers(0, n_buckets, N))
+    signs = rng.integers(0, 2, N)
+    slots[10:14] = slots[10]
+    keys[10:14] = keys[10]
+    signs[12] = 1 - signs[11]
+    keys[-5:] = n_buckets
+    return (PackedRows32(rows[torch.as_tensor(slots, device=dev)]),
+            torch.as_tensor(signs, device=dev),
+            torch.as_tensor(keys, dtype=torch.int32, device=dev))
+
+
 @pytest.mark.parametrize("name", CURVES)
 def test_seg_kernels_match_plain(dev, name):
-    """K5, both variants, on sorted duplicate-heavy keys with a point four
-    times in one run (a doubling), a cancellation and pads: heads, tails,
-    keys and the bucket array updated in place equal the plain version's."""
-    from msm_blst_tpu_torch.curves import AffinePoint, XyzzPoint
-    from msm_blst_tpu_torch.msm import cuda_scan
+    """K5's affine level and segmented scan on sorted duplicate-heavy keys
+    with a doubling, a cancellation and pads, at the port's level shapes:
+    the level's stream, its keys and the bucket array it updates in place,
+    then the bucket array after the scan, equal the plain versions'; the
+    scan's stream takes one tile (700 elements), 24 (3,000), and 196 with
+    a carry pass of two totals a thread (50,000: 25,000 heads and
+    tails)."""
+    from msm_blst_tpu_torch.curves import XyzzPoint
+    from msm_blst_tpu_torch.msm import cuda_scan, scan
 
     curve = _curve(name)
-    W = curve.F.n_words
-    c, n_ch, n_buckets = 6, 256, 300
-    rng = np.random.default_rng(3)
-    rows = curve.to_rows32(_points(32, dev, name)).XY
-    slots = torch.as_tensor(rng.integers(0, 32, c * n_ch), device=dev)
-    slots[10:14] = slots[10]
-    keys = torch.as_tensor(np.sort(rng.integers(0, n_buckets, c * n_ch)),
-                           dtype=torch.int32, device=dev)
-    keys[10:14] = keys[10]
-    keys[-5:] = n_buckets
-    signs = torch.as_tensor(rng.integers(0, 2, c * n_ch), dtype=torch.int32,
-                            device=dev)
-    signs[12] = 1 - signs[11]
-
-    def to_cols(x):  # lane k holds elements k*c .. k*c + c-1
-        return x.reshape(n_ch, c, *x.shape[1:]).transpose(0, 1).contiguous()
-
-    g = rows.index_select(0, slots)
-    rx, ry = to_cols(g[:, :W]), to_cols(g[:, W:])
-    sc, kc = to_cols(signs), to_cols(keys)
-    lifted = curve.xyzz_double(curve.xyzz_from_affine(
-        AffinePoint(curve.from_words(rx.reshape(-1, W).T),
-                    curve.from_words(ry.reshape(-1, W).T)),
-        negate=sc.reshape(-1) != 0))
-    cols = XyzzPoint(*(x.reshape(curve.F.lead + (c, n_ch)).movedim(-2, 0)
-                       .contiguous() for x in lifted))
-    for args in (((rx, ry), sc, kc), (cols, None, kc)):
-        outs = []
+    for N, n_buckets, tiles in ((700, 40, 1), (3000, 300, 24),
+                                (50000, 2000, 196)):
+        pts, sg, ky = _seg_stream(curve, N, n_buckets, N, dev)
+        cols, scols, kcols = cuda_scan.level_cols(curve, pts, sg, ky, n_buckets)
+        levels = []
         for fn in (cuda_scan.seg_level, cuda_scan.seg_level_plain):
             buckets = cuda_scan.bucket_array(curve, n_buckets, dev)
-            head, tail, hk, tk = fn(curve, *args, buckets, n_buckets)
-            outs.append([*buckets, *head, *tail, hk, tk])
-        assert all(torch.equal(a, b) for a, b in zip(*outs))
-        assert bool((outs[0][3] != 0).any())  # some run reached a bucket
+            out, out_key = fn(curve, cols, scols, kcols, buckets, n_buckets)
+            levels.append((out, out_key, buckets))
+        (out, out_key, b1), (out2, key2, b2) = levels
+        assert all(torch.equal(a, b) for a, b in zip(out, out2))
+        assert torch.equal(out_key, key2)
+        assert all(torch.equal(a, b) for a, b in zip(b1, b2))
+        assert scan.scan_schedule(out_key.shape[0]).n_tiles == tiles
+        sums = []
+        for fn in (cuda_scan.seg_scan, cuda_scan.seg_scan_plain):
+            buckets = XyzzPoint(*(c.clone() for c in b1))
+            fn(curve, out, out_key, buckets, n_buckets)
+            sums.append(buckets)
+        assert all(torch.equal(a, b) for a, b in zip(*sums))
+        assert bool((sums[0].ZZ != 0).any())  # some run reached a bucket
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_seg_scan_kernel_at_the_bgmw_shape(dev, name):
+    """K5 at BGMW's level shape at n = 2^16 (983,040 digits over 65,537
+    buckets: 30 columns over 32,768 lanes, then a scan of 65,536 heads and
+    tails in 256 tiles of two elements a thread, two totals a thread in
+    its carry pass), one launch of each, equal to the plain versions."""
+    from msm_blst_tpu_torch import kernels
+    from msm_blst_tpu_torch.curves import XyzzPoint
+    from msm_blst_tpu_torch.msm import cuda_scan, scan
+
+    curve = _curve(name)
+    N, n_buckets = 983040, 65537
+    pts, sg, ky = _seg_stream(curve, N, n_buckets, 9, dev)
+    cols, scols, kcols = cuda_scan.level_cols(curve, pts, sg, ky, n_buckets)
+    assert tuple(kcols.shape) == (30, 32768)
+    ks = kernels.CURVE_KERNELS[name]
+    before = {op: ks[op].launches for op in ("seg_level_affine", "seg_scan")}
+    b1 = cuda_scan.bucket_array(curve, n_buckets, dev)
+    out, out_key = cuda_scan.seg_level(curve, cols, scols, kcols, b1, n_buckets)
+    b2 = cuda_scan.bucket_array(curve, n_buckets, dev)
+    out2, key2 = cuda_scan.seg_level_plain(curve, cols, scols, kcols, b2,
+                                           n_buckets)
+    assert all(torch.equal(a, b) for a, b in zip(list(out) + list(b1),
+                                                 list(out2) + list(b2)))
+    assert torch.equal(out_key, key2)
+    assert tuple(scan.scan_schedule(65536)) == (2, 256, 2)
+    got = XyzzPoint(*(c.clone() for c in b1))
+    cuda_scan.seg_scan(curve, out, out_key, got, n_buckets)
+    cuda_scan.seg_scan_plain(curve, out, out_key, b2, n_buckets)
+    assert all(torch.equal(a, b) for a, b in zip(got, b2))
+    assert {op: ks[op].launches - before[op] for op in before} == {
+        "seg_level_affine": 1, "seg_scan": 1}
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_seg_kernels_keep_their_blocks(dev, name):
+    """K5's level and its scan's four kernels keep two blocks an SM, the
+    wave their shapes are picked for."""
+    from msm_blst_tpu_torch import kernels
+
+    assert min(kernels.occupancy(name, "seg_level_affine")) >= 2
 
 
 @pytest.mark.parametrize("name", CURVES)

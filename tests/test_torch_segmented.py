@@ -1,15 +1,20 @@
-"""K5's plain version and the port's segmented bucket reduction against the
-JAX package.
+"""K5's plain affine level and the port's segmented bucket reduction
+against the JAX package.
 
 * seg_level_plain against JAX's Pallas `_seg_kernel` run in interpret
-  mode, affine and xyzz, at the smallest shape that kernel takes (n_ch =
-  blk = 128, c = 3-4): heads, tails and keys are the same words, and the
-  bucket array the port updates in place equals JAX's emissions scattered
-  into an empty one. The keys are duplicate-heavy, one point repeats inside
-  a run (the doubling case) and a sign cancels inside a run.
+  mode (affine, its level 1) at the smallest shape that kernel takes
+  (n_ch = blk = 128, c = 4): heads, tails and keys (the port's stream
+  holds lane k's head at 2k and its tail at 2k + 1) are the same words,
+  and the bucket array the port updates in place equals JAX's emissions
+  scattered into an empty one. The keys are duplicate-heavy, one point
+  repeats inside a run (the doubling case) and a sign cancels inside a
+  run.
 * segmented_reduce_affine against JAX's scan.segmented_reduce_affine at
   N = 1500 and 2048. The two cut the stream into other chunks, so the
   buckets agree as points: compared in affine, exactly.
+
+K5's segmented scan (the xyzz part of the reduction) is held against JAX
+in tests/test_torch_seg_scan.py.
 """
 
 import jax
@@ -25,7 +30,7 @@ from msm_blst_tpu.msm import pallas_scan
 from msm_blst_tpu.msm import scan as jscan
 from msm_blst_tpu.refimpl import G1_REF
 from msm_blst_tpu_torch.convert import fp_from_jax, fp_to_jax
-from msm_blst_tpu_torch.curves import G1, AffinePoint, XyzzPoint
+from msm_blst_tpu_torch.curves import G1, XyzzPoint
 from msm_blst_tpu_torch.fields.limb import array_to_ints
 from msm_blst_tpu_torch.msm import cuda_scan
 from msm_blst_tpu_torch.msm.scan import segmented_reduce_affine
@@ -68,8 +73,7 @@ def _affine_ints(pt):
     return out
 
 
-@pytest.mark.parametrize("affine,c", [(True, 4), (False, 3)],
-                         ids=["affine", "xyzz"])
+@pytest.mark.parametrize("affine,c", [(True, 4)], ids=["affine"])
 def test_seg_level_plain_matches_jax_kernel(affine, c):
     from jax.experimental.pallas import tpu as pltpu
 
@@ -81,26 +85,18 @@ def test_seg_level_plain_matches_jax_kernel(affine, c):
     Y = base.Y[:, torch.as_tensor(slots)]
     kc = torch.as_tensor(keys.reshape(c, n_ch))
     sc = torch.as_tensor(signs.reshape(c, n_ch))
-    if affine:
-        cols = (X.T.reshape(c, n_ch, W).contiguous(),
-                Y.T.reshape(c, n_ch, W).contiguous())
-        sg = sc
-        jcoords = [fp_to_jax(x.reshape(W, c, n_ch)).transpose(1, 0, 2)
-                   for x in (X, Y)]
-        jargs = jcoords + [signs.reshape(c, 1, n_ch), keys.reshape(c, 1, n_ch)]
-    else:
-        lifted = G1.xyzz_from_affine(AffinePoint(X, Y),
-                                     negate=torch.as_tensor(signs) != 0)
-        pts = G1.xyzz_double(lifted)  # varied Z coordinates
-        cols = XyzzPoint(*(x.reshape(W, c, n_ch).permute(1, 0, 2).contiguous()
-                           for x in pts))
-        sg = None
-        jargs = [fp_to_jax(x.reshape(W, c, n_ch)).transpose(1, 0, 2)
-                 for x in pts] + [keys.reshape(c, 1, n_ch)]
+    cols = (X.T.reshape(c, n_ch, W).contiguous(),
+            Y.T.reshape(c, n_ch, W).contiguous())
+    jcoords = [fp_to_jax(x.reshape(W, c, n_ch)).transpose(1, 0, 2)
+               for x in (X, Y)]
+    jargs = jcoords + [signs.reshape(c, 1, n_ch), keys.reshape(c, 1, n_ch)]
 
     buckets = cuda_scan.bucket_array(G1, n_buckets, CPU)
-    head, tail, hk, tk = cuda_scan.seg_level_plain(G1, cols, sg, kc, buckets,
-                                                   n_buckets)
+    out, out_key = cuda_scan.seg_level_plain(G1, cols, sc, kc, buckets,
+                                             n_buckets)
+    head = XyzzPoint(*(x[..., 0::2] for x in out))
+    tail = XyzzPoint(*(x[..., 1::2] for x in out))
+    hk, tk = out_key[0::2], out_key[1::2]
 
     kern = pallas_scan._seg_kernel("G1", affine, c, n_ch, n_ch, n_buckets)
     with pltpu.force_tpu_interpret_mode():
