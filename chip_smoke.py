@@ -11,8 +11,10 @@ Phases, each reported on its own lines:
      registers and spills; K3's, K4's and K5's kernels must keep
      FOLD_WAVE // 132 blocks resident an SM
      (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the wave the host
-     schedules their launches for, and K2's wide kernels
-     the blocks their launch bounds ask for (kernels.point_min_blocks());
+     schedules their launches for, K2's wide kernels
+     the blocks their launch bounds ask for (kernels.point_min_blocks()),
+     and K6's stage kernels the blocks its persistent grid is sized for
+     (kernels.sos_min_blocks());
   3. drivers: the three measurement drivers of the port (microbench,
      mxu_experiment, gather_bench) at the JAX drivers' shapes, each
      printing its JSON lines and counting its launches on its own; the
@@ -20,7 +22,9 @@ Phases, each reported on its own lines:
      the published peaks in every bound below;
   4. kernels: each CUDA kernel, G1 and G2 instances, K6 at every stage, K7
      for each dtype and K8, against its plain PyTorch version on the card at
-     the shapes of the n=2^16 paths and the drivers, exact equality, with
+     the shapes of the n=2^16 paths and the drivers (K1 and K6 at 2^20 and
+     at the plan build's batch-inversion columns of 10,752, there also
+     under a CUDA graph), exact equality, with
      CUDA-event times of both, of the library call where one computes the
      same function, and the least time the card could take for the same
      work (bytes, integer multiply-adds, tensor-core MACs or FMAs); K3 (the
@@ -46,7 +50,7 @@ Phases, each reported on its own lines:
      path launched, K3 at the level shape prefix_pipeline.stream_shape
      gives the path's stream; then the same under the SOS multiply
      (mul_impl="sos", plan build included), which must launch K6 and never
-     K1;
+     K1; each path prints K1's and K6's launches by batch size;
   6. algorithms: one G1 plan with the CHES, BGMW95 and stock tables at the
      same n and config; host-recode CHES, BGMW95 and stock Pippenger, BGMW
      and stock with both bucket strategies (prefix, segmented), each query
@@ -200,7 +204,8 @@ def phase_build():
 def check_occupancy():
     """K3's, K4's and K5's kernels must keep the resident blocks an SM that
     the host's wave (msm/scan.py FOLD_WAVE blocks on 132 SMs) counts on,
-    K2's wide kernels the blocks their launch bounds ask for."""
+    K2's wide kernels the blocks their launch bounds ask for, and K6's four
+    stage kernels the blocks its persistent grid is sized for."""
     from msm_blst_tpu_torch import kernels
     from msm_blst_tpu_torch.msm import scan
 
@@ -215,6 +220,11 @@ def check_occupancy():
             if min(blocks) < per_sm:
                 raise AssertionError(f"{curve} {op}: {blocks} blocks an SM, "
                                      f"below {per_sm}")
+    blocks, per_sm = kernels.sos_occupancy(), kernels.sos_min_blocks()
+    print(f"occupancy sos_mul (prod, bytes, mm1, full): {blocks} resident "
+          f"blocks an SM (the persistent grid is sized for {per_sm})")
+    if min(blocks) < per_sm:
+        raise AssertionError(f"K6: {blocks} blocks an SM, below {per_sm}")
 
 
 def _random_fp(n: int, seed: int, dev) -> torch.Tensor:
@@ -236,12 +246,14 @@ def phase_kernels(dev):
     the drivers' shapes."""
     from msm_blst_tpu_torch.fields import cuda_mont
     from msm_blst_tpu_torch.fields.limb import FP
-    from msm_blst_tpu_torch.utils.profiling import device_ms
+    from msm_blst_tpu_torch.utils.profiling import device_ms, graph_ms
 
     results = {}
 
     def record(name, kernel_fn, plain_fn, reps, plain_reps, n_bytes,
-               n_mont=0, library_fn=None, **ops):
+               n_mont=0, library_fn=None, graph=False, **ops):
+        """`graph`: also time the kernel under a CUDA graph of 20 calls,
+        where the host's launch work is the slower (graph_ms)."""
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
@@ -260,16 +272,25 @@ def phase_kernels(dev):
             raise AssertionError(f"{name}: kernel and plain version differ")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          **b, "library_ms": library_ms}
+        if graph:
+            results[name]["graph_ms"] = graph_ms(kernel_fn)
+            print(f"kernel {name}: graph {results[name]['graph_ms']:.5f} ms a "
+                  "call (CUDA graph of 20 calls)")
         return results[name]
 
-    # K1 and K6 on 2^20 elements
-    a = _random_fp(1 << 20, 11, dev)
-    b = _random_fp(1 << 20, 12, dev).flip(1).contiguous()
-    B = a.shape[1]
-    record("mont_mul", lambda: cuda_mont.mont_mul(a, b, FP),
-           lambda: cuda_mont.mont_mul_plain(a, b, FP), 20, 2,
-           3 * FP_BYTES * B, B)
-    sos_kernels(dev, a, b, record)
+    # K1 and K6 on 2^20 elements, then at the batch inversion's column
+    # shape, where the host's launch work is the slower: there also under
+    # a CUDA graph
+    for n, tag in ((1 << 20, ""), (COLUMN, f" {COLUMN}")):
+        a = _random_fp(n, 11, dev)
+        b = _random_fp(n, 12, dev).flip(1).contiguous()
+        reps = 20 if n > COLUMN else 200
+        record("mont_mul" + tag, lambda: cuda_mont.mont_mul(a, b, FP),
+               lambda: cuda_mont.mont_mul_plain(a, b, FP), reps, 2,
+               3 * FP_BYTES * n, n, graph=bool(tag))
+        sos_kernels(dev, a, b, functools.partial(record, graph=bool(tag)),
+                    tag, reps)
+        del a, b
     for name in ("G1", "G2"):
         curve_kernels(dev, CurveCase(name), record)
     driver_kernels(dev, record)
@@ -283,21 +304,30 @@ SOS_IMAD = 2 * 144
 SOS_MACS = {"prod": 0, "bytes": 0, "mm1": 48 * 48, "full": 48 * 48 + 96 * 48}
 
 
-def sos_kernels(dev, a, b, record):
+# The batch inversion's column shape: a CONFIGS[16] CHES table's 2,752,512
+# elements in utils/scans.pick_chunk's 256 columns, the commonest K1 and K6
+# launch of the plan builds
+COLUMN = 10752
+
+
+def sos_name(stage: str) -> str:
+    return "sos_mul" if stage == "full" else f"sos_mul_{stage}"
+
+
+def sos_kernels(dev, a, b, record, tag="", reps=20):
     """K6 at every stage against its plain version on K1's inputs; the full
-    stage equals K1 too."""
+    stage equals K1 too. `tag` suffixes the names recorded."""
     from msm_blst_tpu_torch.fields import cuda_mont, sos
     from msm_blst_tpu_torch.fields.limb import FP
 
     B = a.shape[1]
     if not torch.equal(sos.sos_mul(a, b, FP), cuda_mont.mont_mul(a, b, FP)):
-        raise AssertionError("sos_mul differs from mont_mul")
+        raise AssertionError(f"sos_mul differs from mont_mul at {B}")
     for stage in sos.STAGES:
-        name = "sos_mul" if stage == "full" else f"sos_mul_{stage}"
-        record(name, lambda: sos.sos_stage(a, b, FP, stage),
-               lambda: sos.sos_stage_plain(a, b, FP, stage), 20, 2,
-               3 * FP_BYTES * B, imad=SOS_IMAD * B,
-               int8_mac=SOS_MACS[stage] * B)
+        record(sos_name(stage) + tag, lambda: sos.sos_stage(a, b, FP, stage),
+               lambda: sos.sos_stage_plain(a, b, FP, stage), reps, 2,
+               3 * FP_BYTES * B,
+               imad=SOS_IMAD * B, int8_mac=SOS_MACS[stage] * B)
 
 
 # K7's checked and timed chain in chip_smoke: the drivers' (256, 1024)
@@ -993,9 +1023,23 @@ def counters():
 def reset_counts():
     torch.cuda.synchronize()
     for k in counters().values():
-        k.launches = 0
+        k.reset()
     LEVEL_SHAPES.clear()
     SEG_SHAPES.clear()
+
+
+def print_batches(path: str) -> None:
+    """The path's K1 and K6 launches by batch size: launches and elements
+    in each of kernels.SIZE_RANGES, and the commonest sizes."""
+    from msm_blst_tpu_torch import kernels
+
+    for name, k in counters().items():
+        if k.batches:
+            common = ", ".join(f"{size} x{count}" for size, count
+                               in k.batches.most_common(4))
+            print(f"{path}: {name} launches by batch size "
+                  f"{kernels.size_ranges(k.batches)} "
+                  f"([launches, elements]); commonest {common}")
 
 
 def read_counts(path: str, names, unused=()) -> dict:
@@ -1004,6 +1048,7 @@ def read_counts(path: str, names, unused=()) -> dict:
     strategy's, the other curve's) did."""
     launches = {name: k.launches for name, k in counters().items()}
     print(f"{path}: launches {launches}")
+    print_batches(path)
     idle = [name for name in names if launches[name] == 0]
     if idle:
         raise AssertionError(f"{path} never launched: {idle}")
@@ -1318,7 +1363,9 @@ def main():
          "replaces": replaces(k),
          "launches": sum(p[k.name] for p in paths.values()),
          "launches_by_path": {name: p[k.name] for name, p in paths.items()},
-         **results[k.name]}
+         **results[k.name],
+         **({f"at_{COLUMN}": results[f"{k.name} {COLUMN}"]}
+            if f"{k.name} {COLUMN}" in results else {})}
         for k in counters().values()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -75,5 +75,5 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"mont_mul: shapes {tuple(a.shape)} {tuple(b.shape)}")
     check_cuda("mont_mul", (a, b))
     out = torch.empty_like(a)
-    MONT_MUL(ptr(a), ptr(b), ptr(out), a.shape[1])
+    MONT_MUL(ptr(a), ptr(b), ptr(out), a.shape[1], batch=a.shape[1])
     return out

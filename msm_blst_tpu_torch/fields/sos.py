@@ -85,17 +85,20 @@ def fused_consts(L: int, modulus: int) -> tuple:
             np.concatenate([c["W2E"], c["W2O"]]))
 
 
-# K6's operand depth: T's 48 clean bytes padded to two k32 steps of the mma
+# The byte Toeplitz's depth: T's 48 clean bytes, padded to 64
 KERNEL_K = 64
 
 
 def kernel_consts(modulus: int = P) -> np.ndarray:
-    """K6's constant operand, uint8[48 + 96, 64]: the fused matrices with
-    rows and columns in byte order. K6's full product resolves its carries,
-    so its column operand is T's clean bytes (byte position 2l + s of limb l,
-    planes s = 0, 1; the third plane of the JAX layout is zero), and row r
-    is output byte position r: rows 0..47 give m = T*P' mod R, rows 48..143
-    the 96 byte positions of m*p. Entry (r, k) is byte r - k of P' (resp. p)."""
+    """The byte Toeplitz of K6's two products by constants, uint8[48 + 96,
+    64]: the fused matrices with rows and columns in byte order. K6's full
+    product resolves its carries, so the operand it multiplies is T's clean
+    bytes (byte position 2l + s of limb l, planes s = 0, 1; the third plane
+    of the JAX layout is zero), and row r is output byte position r: rows
+    0..47 give m = T*P' mod R, rows 48..143 the 96 byte positions of m*p.
+    Entry (r, k) is byte r - k of P' (resp. p). K6 builds its fragments of
+    this matrix in registers from P' and p (csrc/sos.cuh lane_consts);
+    tests/test_torch_sos_kernel.py reads them back against it."""
     L = 2 * (-(-modulus.bit_length() // 32))
     w1, w2 = fused_consts(L, modulus)
 
@@ -197,18 +200,6 @@ def sos_mul_plain(a, b, field: LimbField) -> torch.Tensor:
 
 # ---- the kernel ----------------------------------------------------------------
 
-_KERNEL_CONSTS: dict = {}
-
-
-def _kernel_consts(device) -> torch.Tensor:
-    """kernel_consts() on `device`, copied there once."""
-    t = _KERNEL_CONSTS.get(str(device))
-    if t is None:
-        t = torch.as_tensor(kernel_consts(P), device=device)
-        _KERNEL_CONSTS[str(device)] = t
-    return t
-
-
 def sos_stage(a: torch.Tensor, b: torch.Tensor, field: LimbField,
               stage: str = "full") -> torch.Tensor:
     """One SOS stage of int32[W, B] batches: K6 for CUDA tensors, the plain
@@ -221,8 +212,7 @@ def sos_stage(a: torch.Tensor, b: torch.Tensor, field: LimbField,
         raise ValueError(f"sos_stage: shapes {tuple(a.shape)} {tuple(b.shape)}")
     check_cuda(SOS_MUL[stage].symbol, (a, b))
     out = torch.empty_like(a)
-    SOS_MUL[stage](ptr(a), ptr(b), ptr(out), ptr(_kernel_consts(a.device)),
-                   a.shape[1])
+    SOS_MUL[stage](ptr(a), ptr(b), ptr(out), a.shape[1], batch=a.shape[1])
     return out
 
 

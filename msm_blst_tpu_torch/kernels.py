@@ -14,13 +14,15 @@ kernel. The table of them is here, in one place: K1 (`MONT_MUL`), each
 curve's K2-K5 and K9 (`CURVE_KERNELS`), K6's stages (`SOS_MUL`), the
 measurement drivers' K7 (`MADD_CHAIN`, by dtype) and K8 (`GATHER_SMEM`),
 with the name a run reports each under, its C symbol and its source;
-`occupancy` reads K2's, K3's, K4's and K5's resident blocks an SM and
-`point_min_blocks` the blocks K2's launch bounds ask for (K8's cluster
+`occupancy` reads K2's, K3's, K4's and K5's resident blocks an SM,
+`sos_occupancy` K6's, and `point_min_blocks` and `sos_min_blocks` the blocks
+K2's and K6's launch bounds ask for (K8's cluster
 capacity: `drivers/gather_bench.py` `cluster_capacity`).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -181,23 +183,51 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 
+# The batch-size ranges `size_ranges` sums a kernel's launches into: one
+# element (pow_int's chain), a scan's narrow levels, its chunk columns, the
+# full-width products
+SIZE_RANGES = (("<=1", 0, 1), ("2-1023", 2, 1023), ("1024-65535", 1024, 65535),
+               ("65536+", 65536, None))
+
+
 class Kernel:
     """One kernel's C entry point: `name` as runs report it, `op` (the name
     without its curve's prefix), its C `symbol` and `argtypes` (the stream
-    follows them), its `source` in csrc/, and its launch count."""
+    follows them), its `source` in csrc/, its launch count and, where the
+    wrapper gives it (K1, K6), the batch size of each launch (`batches`:
+    size -> launches)."""
 
     def __init__(self, name: str, op: str, symbol: str, source: str, argtypes):
         self.name, self.op, self.symbol = name, op, symbol
         self.source, self.argtypes = source, list(argtypes)
         self.launches = 0
+        self.batches = collections.Counter()
 
-    def __call__(self, *args):
+    def __call__(self, *args, batch: int | None = None):
         fn = getattr(load(), self.symbol)
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} at launch")
         self.launches += 1
+        if batch is not None:
+            self.batches[batch] += 1
+
+    def reset(self):
+        self.launches = 0
+        self.batches.clear()
+
+
+def size_ranges(batches) -> dict:
+    """{range label: [launches, elements]} of a batch-size histogram
+    (`Kernel.batches`), by SIZE_RANGES."""
+    out = {label: [0, 0] for label, _, _ in SIZE_RANGES}
+    for size, count in batches.items():
+        label = next(lb for lb, lo, hi in SIZE_RANGES
+                     if size >= lo and (hi is None or size <= hi))
+        out[label][0] += count
+        out[label][1] += size * count
+    return out
 
 
 MONT_MUL = Kernel("mont_mul", "mont_mul", "msm_mont_mul", "mont_mul.cu",
@@ -246,7 +276,7 @@ CURVE_KERNELS = {
 SOS_MUL = {stage: Kernel("sos_mul" if stage == "full" else f"sos_mul_{stage}",
                          "sos_mul", "msm_sos_mul" if stage == "full"
                          else f"msm_sos_mul_{stage}", "sos_mul.cu",
-                         [_P] * 4 + [_I64])
+                         [_P] * 3 + [_I64])
            for stage in ("prod", "bytes", "mm1", "full")}
 # K7, the chained multiply-add probe, by dtype
 MADD_CHAIN = {dtype: Kernel(f"madd_chain_{dtype}", "madd_chain",
@@ -288,6 +318,23 @@ def occupancy(curve: str, op: str) -> list:
     return list(out)
 
 
+def sos_occupancy() -> list:
+    """The resident blocks an SM of K6's four stage kernels (prod, bytes,
+    mm1, full), as cudaOccupancyMaxActiveBlocksPerMultiprocessor reports
+    them for the library as built."""
+    out = (ctypes.c_int * 4)()
+    rc = load().msm_sos_occupancy(out)
+    if rc != 0:
+        raise RuntimeError(f"msm_sos_occupancy: CUDA error {rc}")
+    return list(out)
+
+
+def sos_min_blocks() -> int:
+    """The resident blocks an SM K6's persistent grid is sized for (and its
+    launch bounds ask for), csrc/sos_mul.cu MIN_BLOCKS."""
+    return load().msm_sos_min_blocks()
+
+
 def point_min_blocks() -> int:
     """The resident blocks an SM that K2's wide kernels' launch bounds ask
     for (csrc/point_ops.cuh MIN_BLOCKS), from the library as built."""
@@ -316,6 +363,10 @@ def load():
                 fn.restype = ctypes.c_int
         lib.msm_point_min_blocks.argtypes = []
         lib.msm_point_min_blocks.restype = ctypes.c_int
+        lib.msm_sos_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.msm_sos_occupancy.restype = ctypes.c_int
+        lib.msm_sos_min_blocks.argtypes = []
+        lib.msm_sos_min_blocks.restype = ctypes.c_int
         # K8's cluster capacity (drivers/gather_bench.py cluster_capacity)
         lib.msm_gather_smem_clusters.argtypes = [
             _I64, ctypes.POINTER(ctypes.c_int)]

@@ -431,18 +431,39 @@ def _random_fp(n, seed, dev):
     return FP.from_ints(xs, device=dev)
 
 
+# K6's edge pairs: zero, one, p - 1, R mod p, and 2^192 * 2^192, whose full
+# product is 0 mod R (so m = 0)
+_SOS_EDGES = [(0, 5), (7, 0), (1, P - 1), (P - 1, P - 1), ((1 << 384) % P,
+              (1 << 384) % P), (1 << 192, 1 << 192), (P - 1, 1),
+              (1 << 380, 16)]
+
+
 @pytest.mark.parametrize("stage", ["prod", "bytes", "mm1", "full"])
 def test_sos_kernel_matches_plain(dev, stage):
-    """K6 at each stage, on a batch that is not a multiple of a warp (the
-    tail lanes stay in the warp and store nothing)."""
+    """K6 at each stage, equal to its plain version word for word (and the
+    full stage to K1): on batches that are not a multiple of a warp (the
+    tail lanes stay in the warp and store nothing), at the batch
+    inversion's column shape (10,752) and on more groups than the
+    persistent grid has warps (100,003), and on the edge pairs."""
     from msm_blst_tpu_torch.fields import FP, cuda_mont, sos
 
-    a = _random_fp(1000, 4, dev)
-    b = _random_fp(1000, 5, dev).flip(1).contiguous()
-    got = sos.sos_stage(a, b, FP, stage)
-    assert torch.equal(got, sos.sos_stage_plain(a, b, FP, stage))
-    if stage == "full":
-        assert torch.equal(got, cuda_mont.mont_mul(a, b, FP))
+    cases = [(_random_fp(n, 4, dev), _random_fp(n, 5, dev).flip(1).contiguous())
+             for n in (1000, 10752, 100003)]
+    cases.append(tuple(FP.from_ints([e[i] for e in _SOS_EDGES], mont=False,
+                                    device=dev) for i in (0, 1)))
+    for a, b in cases:
+        got = sos.sos_stage(a, b, FP, stage)
+        assert torch.equal(got, sos.sos_stage_plain(a, b, FP, stage))
+        if stage == "full":
+            assert torch.equal(got, cuda_mont.mont_mul(a, b, FP))
+
+
+def test_sos_kernel_occupancy(dev):
+    """Every K6 stage keeps the resident blocks an SM its persistent grid
+    is sized for."""
+    from msm_blst_tpu_torch import kernels
+
+    assert min(kernels.sos_occupancy()) >= kernels.sos_min_blocks()
 
 
 @pytest.mark.parametrize("dtype", ["uint32", "int32", "float32"])
