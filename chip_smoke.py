@@ -67,7 +67,23 @@ Phases, each reported on its own lines:
      on two scalar sets), each path launching the G2 kernels (and K1 or
      K6, which Fp2's products run through) and none of the G1 point and
      level kernels;
-  8. a JSON line of per-kernel results, then the final status line.
+  8. bign: streamed plans (the window-major "j" layout) at n = 2^21
+     (params.CONFIGS[21], the BGMW table aliased into the 3nh one) on G1
+     and G2, with their build times and peak device memory; on G1
+     msm_ches_device and msm_bign (CHES and BGMW95) at the chunk count the
+     free memory gives and at BIGN_CHUNKS, on G2 msm_bign CHES and BGMW;
+     then CONFIGS[20]'s BGMW-only plan (its own nh table) on G1 and its
+     msm_bign; each query after a warm-up on BIGN_SEEDS (G2 and 2^20:
+     G2_BIGN_SEEDS), against the oracle, with its mean and min ms, peak
+     memory, chunks a query and every K3 launch at stream_shape of its
+     chunk; K3 at the 2^21 level shape (its first and last 128 lanes held
+     step by step to the plain mixed add), K4 over its tails and (G1) the
+     874,436 CHES suffix sums, K1 at the 2^21 window inversions' commonest
+     batch and at a window's 3n lanes, each against its plain version;
+     the 2^16 plan through the cache (save_plan, load_plan) and two
+     queries from the loaded plan;
+  9. a JSON line of per-kernel results (the new shapes under
+     "at_<shape>"), then the final status line.
 
 It catches no exception: any failure exits non-zero before the last line.
 """
@@ -240,43 +256,48 @@ def _random_fp(n: int, seed: int, dev) -> torch.Tensor:
     return torch.as_tensor(w.astype(np.uint32).view(np.int32), device=dev)
 
 
+RESULTS = {}  # kernel name -> its measurements (record)
+
+
+def record(name, kernel_fn, plain_fn, reps, plain_reps, n_bytes,
+           n_mont=0, library_fn=None, graph=False, **ops):
+    """The kernel's call against its plain version's on the same inputs
+    (exact equality), both timed (device_ms), beside the bound, into
+    RESULTS[name]. `graph`: also time the kernel under a CUDA graph of 20
+    calls, where the host's launch work is the slower (graph_ms)."""
+    from msm_blst_tpu_torch.utils.profiling import device_ms, graph_ms
+
+    got = kernel_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max_abs_err(got, want)
+    ms = device_ms(kernel_fn, reps)
+    plain_ms = device_ms(plain_fn, plain_reps)
+    library_ms = None if library_fn is None else device_ms(library_fn, reps)
+    b = bound(n_bytes, n_mont, **ops)
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    print(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms{lib}, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})")
+    if err != 0:
+        raise AssertionError(f"{name}: kernel and plain version differ")
+    RESULTS[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **b, "library_ms": library_ms}
+    if graph:
+        RESULTS[name]["graph_ms"] = graph_ms(kernel_fn)
+        print(f"kernel {name}: graph {RESULTS[name]['graph_ms']:.5f} ms a "
+              "call (CUDA graph of 20 calls)")
+    return RESULTS[name]
+
+
 def phase_kernels(dev):
     """Every kernel against its plain version: K1 and K6's stages, K2-K5 for
     G1 and for G2 at the shapes of their n = 2^16 paths, then K7 and K8 at
     the drivers' shapes."""
     from msm_blst_tpu_torch.fields import cuda_mont
     from msm_blst_tpu_torch.fields.limb import FP
-    from msm_blst_tpu_torch.utils.profiling import device_ms, graph_ms
-
-    results = {}
-
-    def record(name, kernel_fn, plain_fn, reps, plain_reps, n_bytes,
-               n_mont=0, library_fn=None, graph=False, **ops):
-        """`graph`: also time the kernel under a CUDA graph of 20 calls,
-        where the host's launch work is the slower (graph_ms)."""
-        got = kernel_fn()
-        want = plain_fn()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max_abs_err(got, want)
-        ms = device_ms(kernel_fn, reps)
-        plain_ms = device_ms(plain_fn, plain_reps)
-        library_ms = None if library_fn is None else device_ms(library_fn, reps)
-        b = bound(n_bytes, n_mont, **ops)
-        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
-        print(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms{lib}, bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']})")
-        if err != 0:
-            raise AssertionError(f"{name}: kernel and plain version differ")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         **b, "library_ms": library_ms}
-        if graph:
-            results[name]["graph_ms"] = graph_ms(kernel_fn)
-            print(f"kernel {name}: graph {results[name]['graph_ms']:.5f} ms a "
-                  "call (CUDA graph of 20 calls)")
-        return results[name]
 
     # K1 and K6 on 2^20 elements, then at the batch inversion's column
     # shape, where the host's launch work is the slower: there also under
@@ -294,7 +315,7 @@ def phase_kernels(dev):
     for name in ("G1", "G2"):
         curve_kernels(dev, CurveCase(name), record)
     driver_kernels(dev, record)
-    return results
+    return RESULTS
 
 
 # K6's work an element by stage: the full product's IMADs (144 word
@@ -958,21 +979,31 @@ def phase_seg_kernels(dev, case, record, rows, rng):
 
 LEVEL_SHAPES = set()  # the (c, n_ch) of each K3 call since reset_counts
 SEG_SHAPES = set()  # and of each K5 level
+LEVEL_CALLS = []  # the (c, n_ch) of each K3 call, in order
+STREAMS = []  # the length of each stream (or chunk) the prefix pipeline took
 
 
 def spy_level_shapes():
     """Record the (c, n_ch) of every K3 call the paths make in LEVEL_SHAPES
-    and of every K5 level in SEG_SHAPES (the pipelines call
-    cuda_scan.affine_prefix_level and cuda_scan.seg_level through the
-    module)."""
-    from msm_blst_tpu_torch.msm import cuda_scan
+    (and LEVEL_CALLS), of every K5 level in SEG_SHAPES, and the length of
+    every stream or chunk of one in STREAMS (the pipelines call
+    cuda_scan.affine_prefix_level, cuda_scan.seg_level and
+    prefix_pipeline._bucket_sums_prefix_single through their modules)."""
+    from msm_blst_tpu_torch.msm import cuda_scan, prefix_pipeline
 
     level = cuda_scan.affine_prefix_level
     seg = cuda_scan.seg_level
+    single = prefix_pipeline._bucket_sums_prefix_single
 
     def spy(curve, rows_x, rows_y, sgn_cols):
         LEVEL_SHAPES.add(tuple(sgn_cols.shape))
+        LEVEL_CALLS.append(tuple(sgn_cols.shape))
         return level(curve, rows_x, rows_y, sgn_cols)
+
+    def single_spy(curve, table, slots_s, signs_s, keys_s, n_buckets):
+        STREAMS.append(int(keys_s.shape[0]))
+        return single(curve, table, slots_s, signs_s, keys_s, n_buckets)
+    prefix_pipeline._bucket_sums_prefix_single = single_spy
 
     def seg_spy(curve, cols, signs, keys, buckets, n_buckets):
         SEG_SHAPES.add(tuple(keys.shape))
@@ -1026,6 +1057,8 @@ def reset_counts():
         k.reset()
     LEVEL_SHAPES.clear()
     SEG_SHAPES.clear()
+    LEVEL_CALLS.clear()
+    STREAMS.clear()
 
 
 def print_batches(path: str) -> None:
@@ -1283,6 +1316,343 @@ def phase_algorithms(dev, case, seeds):
     return paths
 
 
+# The big-n phase: CONFIGS[21] (c = 22, h = 12, |B| = 874,437; BGMW aliased
+# into the 3nh table) on G1 and G2, CONFIGS[20]'s BGMW table (c' = 20,
+# h' = 13, not aliased) on G1, and the plan cache at n = 2^16
+BIGN_LOG = 21
+NH_LOG = 20
+BIGN_SEEDS = (2, 3)  # timed scalar sets of each G1 2^21 query
+G2_BIGN_SEEDS = (2,)  # and of the G2 and the 2^20 queries
+BIGN_CHUNKS = 4  # the fixed chunk count each msm_bign query also runs at
+GIB = float(1 << 30)
+
+
+def bign_scalars(n: int, seed: int) -> np.ndarray:
+    """uint32[8, n] scalars below r from a numpy seed, made in bulk (eight
+    random words, the top one below r's); lanes 0 and 1 are 0 and r - 1."""
+    from msm_blst_tpu_torch.constants import R_ORDER
+    from msm_blst_tpu_torch.msm import recode
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64).astype(np.uint32)
+    w[7] %= np.uint32(R_ORDER >> 224)
+    w[:, :2] = recode.scalars_from_ints([0, R_ORDER - 1])
+    return w
+
+
+def weighted_total(sc: np.ndarray) -> int:
+    """sum_i s_i 2^(i+1) mod r of uint32[8, n] scalars, fast at any n: bit
+    b of word k of every scalar, read as one n-bit integer, shifted into
+    place (32 k + b)."""
+    from msm_blst_tpu_torch.constants import R_ORDER
+
+    n = sc.shape[1]
+    total = 0
+    for k in range(8):
+        bits = np.unpackbits(np.ascontiguousarray(sc[k]).view(np.uint8)
+                             .reshape(n, 4), axis=1, bitorder="little")
+        cols = np.packbits(bits.T, axis=1, bitorder="little")
+        for b in range(32):
+            total += int.from_bytes(cols[b].tobytes(), "little") << (32 * k + b)
+    return 2 * total % R_ORDER
+
+
+class BignCase:
+    """One curve's big-n scalar sets on the card and their oracle points
+    ((sum s_i 2^(i+1) mod r) * G), by seed."""
+
+    def __init__(self, case, n: int, seeds, dev):
+        from msm_blst_tpu_torch import refimpl
+        from msm_blst_tpu_torch.msm import recode
+
+        ref = refimpl.CURVES[case.curve.name]
+        self.case, self.n = case, n
+        host = {s: bign_scalars(n, s) for s in seeds}
+        self.scalars = {s: recode.to_device(a, dev) for s, a in host.items()}
+        self.want = {s: ref.mult(weighted_total(a)) for s, a in host.items()}
+
+    def check(self, label, seed, jac, curve):
+        if curve.affine_to_ints(curve.jac_to_affine(jac))[0] != self.want[seed]:
+            raise AssertionError(f"{label} seed {seed}: MSM differs from the "
+                                 "oracle")
+
+
+def bign_plan(label, bc, cfg, dev, **tables):
+    """Fixed points and a streamed plan of `tables` (build_plan's ches,
+    bgmw), timed, with the build's peak device memory and launches."""
+    from msm_blst_tpu_torch.msm import build_plan, fixed_point_list
+
+    case = bc.case
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    points = fixed_point_list(case.curve, bc.n, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plan = build_plan(case.curve, points, cfg, stock=False, streamed=True,
+                      **tables)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    shapes = {name: tuple(t.XY.shape) for name, t in
+              (("3nh", plan.table3nh), ("nh", plan.table_nh)) if t is not None}
+    nbytes = sum(4 * s[0] * s[1] for s in shapes.values())
+    print(f"{label}: n=2^{bc.n.bit_length() - 1}, c={cfg.c}, h={cfg.h}, "
+          f"c'={cfg.c_bgmw}, h'={cfg.h_bgmw}, |B|={cfg.b_size}, layout "
+          f"{plan.layout}, bgmw_stride3 {plan.bgmw_stride3}, tables {shapes} "
+          f"({nbytes / GIB:.3f} GiB); fixed points {t1 - t0:.3f} s, tables "
+          f"{t2 - t1:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / GIB:.3f} GiB")
+    ops = ["point_dadd_affine", "point_double"] + (
+        ["point_dadd"] if plan.table3nh is not None else [])
+    launches = read_counts(f"{label} build", *path_kernels(case, ops))
+    return plan, launches
+
+
+def bign_query(label, bc, plan, query, seeds, integration):
+    """One warm-up and the timed scalar sets `seeds` of `query(scalars)`,
+    each checked against the oracle; prints the mean and min ms, the peak
+    device memory and the chunks a query; every K3 launch at stream_shape
+    of its chunk's stream. Returns the path's launches."""
+    from msm_blst_tpu_torch.msm import prefix_pipeline
+
+    case = bc.case
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    bc.check(label, WARM_SEED, query(bc.scalars[WARM_SEED]), plan.curve)
+    times = []
+    for s in seeds:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        jac = query(bc.scalars[s])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        bc.check(label, s, jac, plan.curve)
+    peak = torch.cuda.max_memory_allocated() / GIB
+    queries = 1 + len(seeds)
+    want = [prefix_pipeline.stream_shape(N) for N in STREAMS if N]
+    print(f"{label}: {len(seeds)} queries equal to the oracle; query mean "
+          f"{1e3 * sum(times) / len(times):.3f} ms, min {1e3 * min(times):.3f}"
+          f" ms; peak device memory {peak:.3f} GiB; "
+          f"{len(STREAMS) / queries:g} chunks a query, streams of "
+          f"{min(STREAMS)}-{max(STREAMS)} digits; K3 shapes "
+          f"{sorted(set(LEVEL_CALLS))}")
+    if LEVEL_CALLS != want:
+        raise AssertionError(f"{label}: K3 ran at {LEVEL_CALLS}, not at its "
+                             f"chunks' stream_shape {want}")
+    launches = read_counts(label, *path_kernels(
+        case, query_kernels(integration, "prefix"), "prefix"))
+    per_query(label, case, launches, queries)
+    return launches
+
+
+def level_steps_plain(curve, rx, ry, sg, local):
+    """K3's local prefixes of some lanes, step by step by the plain
+    version: column 0 the lifted signed point, each column j the plain
+    mixed add of column j - 1's prefix (K3's own) and point j, all columns
+    in one batched call. Returns (K3's prefixes, the plain ones), xyzz
+    batches over (column, lane); equal words at every step mean K3's
+    lanes equal the plain level's."""
+    from msm_blst_tpu_torch.curves import AffinePoint, XyzzPoint, cuda_point
+
+    W = curve.F.n_words
+
+    def words(rows, k):  # (c, L, k W) rows -> k coordinates of (*lead, c L)
+        flat = rows.reshape(-1, k * W)
+        return [curve.from_words(flat[:, i * W:(i + 1) * W].T.contiguous())
+                for i in range(k)]
+
+    got = XyzzPoint(*words(local, 4))
+    X, Y = words(rx, 1)[0], words(ry, 1)[0]
+    sub = sg.reshape(-1) != 0
+    L = rx.shape[1]
+    first = curve.xyzz_from_affine(AffinePoint(X[..., :L], Y[..., :L]),
+                                   negate=sub[:L])
+    steps = cuda_point.xyzz_dadd_affine_plain(
+        curve, XyzzPoint(*(x[..., :-L] for x in got)),
+        AffinePoint(X[..., L:], Y[..., L:]), sub[L:])
+    want = XyzzPoint(*(torch.cat([f, t], dim=-1) for f, t in zip(first, steps)))
+    return got, want
+
+
+def bign_kernels(case, plan, tag):
+    """K3 at the level shape of the plan's whole CHES stream (n h digits)
+    on rows of its table drawn with a seed, its first and last 128 lanes
+    checked step by step against the plain version (level_steps_plain: the
+    plain level alone runs its c adds one call at a time, half a minute
+    here), then K4 over the level's lane tails and, G1, over CONFIGS[21]'s
+    |B| - 1 suffix sums, each against its plain version; recorded under
+    "<kernel> <tag>"."""
+    from msm_blst_tpu_torch.curves import XyzzPoint
+    from msm_blst_tpu_torch.msm import cuda_scan, prefix_pipeline, scan
+    from msm_blst_tpu_torch.utils.profiling import device_ms
+
+    curve, E = case.curve, case.elem_bytes
+    W = curve.F.n_words
+    dev = plan.table3nh.XY.device
+    cfg = plan.cfg
+    c, n_ch = prefix_pipeline.stream_shape(plan.points.X.shape[-1] * cfg.h)
+    rows = plan.table3nh.XY
+    gen = torch.Generator(device=dev).manual_seed(13)
+    slots = torch.randint(0, rows.shape[0], (c * n_ch,), device=dev,
+                          generator=gen)
+    g = rows.index_select(0, slots)
+    del slots
+    rx = g[:, :W].reshape(c, n_ch, W).contiguous()
+    ry = g[:, W:].reshape(c, n_ch, W).contiguous()
+    del g
+    sg = torch.randint(0, 2, (c, n_ch), device=dev, dtype=torch.int32,
+                       generator=gen)
+    local, tails = cuda_scan.affine_prefix_level(curve, rx, ry, sg)
+    lanes = torch.cat([torch.arange(128, device=dev),
+                       torch.arange(n_ch - 128, n_ch, device=dev)])
+    got, want = level_steps_plain(curve, rx[:, lanes], ry[:, lanes],
+                                  sg[:, lanes], local[:, lanes])
+    last = XyzzPoint(*(x[..., -len(lanes):] for x in got))
+    err = max(max_abs_err(got, want),
+              max_abs_err(last, tuple(t[..., lanes] for t in tails)))
+    name = case.name("affine_prefix_level")
+    ms = device_ms(lambda: cuda_scan.affine_prefix_level(curve, rx, ry, sg), 3)
+    b = bound(c * n_ch * (6 * E + 4) + 4 * E * n_ch,
+              case.mont(DADD_AFFINE) * (c - 1) * n_ch)
+    RESULTS[f"{name} {tag}"] = {
+        "c": c, "n_ch": n_ch, "max_abs_err": err, "checked_lanes": len(lanes),
+        "ms": ms, "plain_ms": None, **b, "library_ms": None}
+    print(f"kernel {name} {tag} (c, n_ch)=({c}, {n_ch}): max_abs_err {err} "
+          f"on {len(lanes)} lanes, step by step; {ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); depth {c} + "
+          f"{scan.scan_depth(scan.scan_schedule(n_ch))} adds (K4 over the "
+          "tails)")
+    if err != 0:
+        raise AssertionError(f"{name} {tag}: kernel and plain version differ")
+    del rx, ry, sg, got, want, last
+    lengths = [n_ch] + ([cfg.b_size - 1] if curve.name == "G1" else [])
+    pts = XyzzPoint(*(curve.from_words(local.reshape(-1, 4, W)[:max(lengths), i]
+                                       .T) for i in range(4)))
+    del local
+    name = case.name("xyzz_prefix_scan")
+    for N in lengths:
+        head = XyzzPoint(*(x[..., :N].contiguous() for x in pts))
+        r = record(f"{name} {tag} {N}",
+                   lambda: tuple(scan.prefix_scan_xyzz(curve, head)),
+                   lambda: tuple(scan.prefix_scan_xyzz_plain(curve, head)),
+                   5, 1, 8 * E * N, case.mont(DADD) * (N - 1))
+        r["N"] = N
+    torch.cuda.empty_cache()
+
+
+def inversion_kernels(plan_launches, n: int):
+    """K1 at the commonest batch of more than one element the big-n plan
+    build launched it at (the chunked product scans of a window's batch
+    inversion) and at a window's whole 3n-lane batch, against its plain
+    version."""
+    from msm_blst_tpu_torch.fields import cuda_mont
+    from msm_blst_tpu_torch.fields.limb import FP
+
+    B = next(size for size, _ in plan_launches.most_common() if size > 1)
+    for lanes in (B, 3 * n):
+        a = _random_fp(lanes, 21, torch.device("cuda"))
+        b = _random_fp(lanes, 22, torch.device("cuda")).flip(1).contiguous()
+        record(f"mont_mul bign {lanes}", lambda: cuda_mont.mont_mul(a, b, FP),
+               lambda: cuda_mont.mont_mul_plain(a, b, FP), 20, 1,
+               3 * FP_BYTES * lanes, lanes)
+
+
+def phase_bign(dev, g1, g2):
+    """Big n: streamed plans ("j" layout) and msm_bign at CONFIGS[21] on G1
+    (CHES device, msm_bign CHES and BGMW at their own chunk count and at
+    BIGN_CHUNKS) and G2 (msm_bign CHES and BGMW), a BGMW-only plan of
+    CONFIGS[20] (its own nh table) and the plan cache at 2^16. Returns the
+    launch counts by path."""
+    from msm_blst_tpu_torch.msm import msm_bign, msm_ches_device, params
+
+    paths = {}
+    cfg = params.CONFIGS[BIGN_LOG]
+    n = 1 << BIGN_LOG
+    for case, seeds in ((g1, BIGN_SEEDS), (g2, G2_BIGN_SEEDS)):
+        name = case.curve.name
+        bc = BignCase(case, n, (WARM_SEED,) + seeds, dev)
+        label = f"{name} bign 2^{BIGN_LOG}"
+        key = f"{name}_2^{BIGN_LOG}"  # the paths' names in the JSON line
+        plan, paths[f"{key}_plan"] = bign_plan(label, bc, cfg, dev)
+        batches = counters()["mont_mul"].batches.copy()
+        queries = [("bign_ches", "gapped", lambda s: msm_bign(plan, s, "ches")),
+                   ("bign_bgmw", "weighted",
+                    lambda s: msm_bign(plan, s, "bgmw"))]
+        if name == "G1":
+            queries = [("ches_device", "gapped",
+                        lambda s: msm_ches_device(plan, s))] + queries + [
+                ("bign_ches_4", "gapped",
+                 lambda s: msm_bign(plan, s, "ches", BIGN_CHUNKS)),
+                ("bign_bgmw_4", "weighted",
+                 lambda s: msm_bign(plan, s, "bgmw", BIGN_CHUNKS))]
+        for qname, integration, query in queries:
+            paths[f"{key}_{qname}"] = bign_query(
+                f"{label} {qname}", bc, plan, query, seeds, integration)
+        bign_kernels(case, plan, f"2^{BIGN_LOG}")
+        if name == "G1":
+            inversion_kernels(batches, n)
+        del plan, bc
+        torch.cuda.empty_cache()
+    # CONFIGS[20]: c' = 20 differs from c = 22, so BGMW has its nh table
+    cfg = params.CONFIGS[NH_LOG]
+    bc = BignCase(g1, 1 << NH_LOG, (WARM_SEED,) + G2_BIGN_SEEDS, dev)
+    label = f"G1 bign 2^{NH_LOG} nh"
+    plan, paths[f"G1_2^{NH_LOG}_nh_plan"] = bign_plan(label, bc, cfg, dev,
+                                                      ches=False)
+    if plan.bgmw_stride3 or plan.table_nh is None:
+        raise AssertionError(f"{label}: the plan holds no nh table")
+    paths[f"G1_2^{NH_LOG}_bign_bgmw"] = bign_query(
+        f"{label} bign_bgmw", bc, plan, lambda s: msm_bign(plan, s, "bgmw"),
+        G2_BIGN_SEEDS, "weighted")
+    del plan, bc
+    torch.cuda.empty_cache()
+    paths[f"G1_cache_2^{N_LOG}"] = phase_cache(dev, g1)
+    return paths
+
+
+def phase_cache(dev, case):
+    """The CONFIGS[16] plan of CHES and BGMW (the "i" layout, its own nh
+    table) saved to a temporary directory and loaded back: the tables
+    equal word for word, the flags and the layout survive, and a CHES and
+    a BGMW query from the loaded plan equal the oracle."""
+    import tempfile
+
+    from msm_blst_tpu_torch.msm import (build_plan, fixed_point_list,
+                                        load_plan, msm_bgmw_device,
+                                        msm_ches_device, params, save_plan)
+
+    curve = case.curve
+    cfg = params.CONFIGS[N_LOG]
+    n = 1 << N_LOG
+    bc = BignCase(case, n, (WARM_SEED,), dev)
+    plan = build_plan(curve, fixed_point_list(curve, n, device=dev), cfg,
+                      stock=False)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        base = save_plan(plan, d)
+        t1 = time.perf_counter()
+        reset_counts()
+        loaded = load_plan(curve, cfg, n, d, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    for name in ("table3nh", "table_nh"):
+        if not torch.equal(getattr(plan, name).XY, getattr(loaded, name).XY):
+            raise AssertionError(f"cache: {name} differs after the round trip")
+    if (loaded.layout, loaded.bgmw_stride3) != (plan.layout, plan.bgmw_stride3):
+        raise AssertionError("cache: the layout or the alias flag changed")
+    label = f"{curve.name} cache 2^{N_LOG}"
+    print(f"{label}: saved in {t1 - t0:.3f} s, loaded in {t2 - t1:.3f} s "
+          f"({base.rsplit('/', 1)[-1]})")
+    for query in (msm_ches_device, msm_bgmw_device):
+        bc.check(f"{label} {query.__name__}", WARM_SEED,
+                 query(loaded, bc.scalars[WARM_SEED]), loaded.curve)
+    print(f"{label}: CHES and BGMW queries of the loaded plan equal the "
+          "oracle")
+    return read_counts(label, *path_kernels(
+        case, query_kernels("gapped", "prefix")
+        + query_kernels("weighted", "prefix"), "prefix"))
+
+
 def phase_drivers(dev):
     """The three drivers at the JAX drivers' shapes, each printing its JSON
     lines, each counting its launches on its own. The microbench's K7 and
@@ -1355,6 +1725,10 @@ def main():
         "G2_ches_device": phase_main_path(dev, g2),
         "G2_ches_device_sos": phase_main_path(dev, g2, "sos", G2_SOS_SEEDS),
         **phase_algorithms(dev, g2, G2_ALGO_SEEDS)})
+    bign = phase_bign(dev, g1, g2)
+    if set(bign) & set(paths):
+        raise AssertionError(f"paths named twice: {set(bign) & set(paths)}")
+    paths.update(bign)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
@@ -1364,8 +1738,8 @@ def main():
          "launches": sum(p[k.name] for p in paths.values()),
          "launches_by_path": {name: p[k.name] for name, p in paths.items()},
          **results[k.name],
-         **({f"at_{COLUMN}": results[f"{k.name} {COLUMN}"]}
-            if f"{k.name} {COLUMN}" in results else {})}
+         **{f"at_{key[len(k.name) + 1:]}": r for key, r in results.items()
+            if key.startswith(k.name + " ")}}
         for k in counters().values()
     ]
     print(json.dumps({"kernels": kernels}))

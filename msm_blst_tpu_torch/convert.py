@@ -68,10 +68,14 @@ def plan_from_jax(arrays: dict, cfg: P.MsmConfig, curve=G1,
     coordinate on G1, 24 on G2) with "packed_table" (the pairs layout,
     int32[q+1, 2]) and "bucket_gaps" (int32[B-1]) for CHES; "table_nh"
     (uint32[nh, 2W]) and "bgmw_stride3" (bool) for BGMW; "points" (its (X,
-    Y) limb arrays, uint32[24, n] or uint32[2, 24, n] each) for stock. Only
-    the "i" row layout is supported, as in the port's build_plan."""
+    Y) limb arrays, uint32[24, n] or uint32[2, 24, n] each) for stock;
+    "layout" (the JAX plan's row order: "i", the default, or "j" of its
+    streamed builders)."""
     device = resolve(device)
-    plan = MsmPlan(curve=curve, cfg=cfg,
+    layout = str(arrays.get("layout", "i"))
+    if layout not in ("i", "j"):
+        raise ValueError(f"layout must be 'i' or 'j', got {layout!r}")
+    plan = MsmPlan(curve=curve, cfg=cfg, layout=layout,
                    bgmw_stride3=bool(arrays.get("bgmw_stride3", False)))
     if arrays.get("table3nh") is not None:
         plan.table3nh = _rows(arrays["table3nh"], curve, device)

@@ -201,9 +201,12 @@ class CurveOps:
         return AffinePoint(F.mul(p.X, zinv2), F.mul(p.Y, F.mul(zinv2, zinv)))
 
     def xyzz_to_affine(self, p: XyzzPoint) -> AffinePoint:
+        """Batched: one field inversion of ZZ and ZZZ together. Infinity
+        maps to (0, 0)."""
         F = self.F
-        return AffinePoint(F.mul(p.X, F.batch_inv(p.ZZ)),
-                           F.mul(p.Y, F.batch_inv(p.ZZZ)))
+        B = p.ZZ.shape[-1]
+        inv = F.batch_inv(torch.cat([p.ZZ, p.ZZZ], dim=-1))
+        return AffinePoint(F.mul(p.X, inv[..., :B]), F.mul(p.Y, inv[..., B:]))
 
     # ---- layout utilities -----------------------------------------------------------
     def take(self, p, idx):

@@ -19,3 +19,19 @@ def default_device() -> torch.device:
 def resolve(device=None) -> torch.device:
     """`device` as a torch.device, or default_device() when it is None."""
     return default_device() if device is None else torch.device(device)
+
+
+# The share of the free device memory a step may plan to take: the rest is
+# left to the allocator's rounding and fragmentation and to what the step
+# does not count.
+FREE_SHARE = 0.5
+
+
+def budget_bytes(device) -> int:
+    """The bytes a step may take on the CUDA `device` now: FREE_SHARE of
+    the card's free memory (torch.cuda.mem_get_info) and of what PyTorch's
+    caching allocator holds reserved but unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return int(FREE_SHARE * (free + cached))

@@ -13,8 +13,17 @@ msm_blst_tpu/msm/engine.py: 62-145, 148-189, 197-230, 278-300, 327-368,
 Each sorts its digit stream by bucket key and accumulates the buckets with
 one of two strategies, chosen per call by the `bucket_impl` keyword:
 "prefix" (prefix_pipeline, the default) or "segmented"
-(scan.segmented_reduce_affine, K5). The noindexhash variant and the big-n
-ranged driver are not ported yet.
+(scan.segmented_reduce_affine, K5).
+
+* Big n: `msm_bign` (port of engine.py:476-640, `jit_msm_bign`): CHES or
+  BGMW95 with the bucket accumulation split into bucket-range chunks
+  (prefix_pipeline.bucket_sums_prefix_ranged), each chunk the exact slice
+  of the sorted stream its buckets own, read after one host copy of the
+  chunk starts.
+
+A plan's rows come in the reference's order ("i" layout) or window-major
+("j" layout, the streamed builders of precompute.py); `ches_slots` and
+`bgmw_slots` read the plan's. The noindexhash variant is not ported.
 """
 
 from __future__ import annotations
@@ -30,30 +39,37 @@ from ..curves.ops import (AffinePoint, CurveOps, JacPoint, PackedRows32,
                           XyzzPoint)
 from . import params as P
 from . import recode
-from .prefix_pipeline import bucket_sums_prefix
+from .prefix_pipeline import (bucket_ranges, bucket_sums_prefix,
+                              bucket_sums_prefix_ranged, chunks_for,
+                              segment_starts)
 from .scan import (fold_segments, fold_xyzz, scan_fold_axis,
                    segmented_reduce_affine, suffix_scan_xyzz)
 
 BUCKET_IMPLS = ("prefix", "segmented")
 
 
+def _sort_stream(slots, keys, signs):
+    """(keys, slots, signs) sorted by key. The (slot, sign) payload rides a
+    stable sort on the keys, so the order inside a bucket is the stream
+    order (JAX's unstable sort leaves it arbitrary; bucket sums agree as
+    points, not as xyzz words). Slots fit 30 bits (3nh < 2^27 at n =
+    2^21)."""
+    payload = (slots.to(torch.int32) << 1) | signs.to(torch.int32)
+    keys_s, perm = torch.sort(keys.to(torch.int32), stable=True)
+    payload_s = payload[perm]
+    return keys_s, payload_s >> 1, (payload_s & 1) != 0
+
+
 def _bucket_sums_stream(curve, table, slots, keys, signs, n_buckets: int,
                         impl: str):
     """Sort the digit stream by bucket key, then accumulate into buckets.
 
-    slots/keys/signs: int/int/bool flat [N] streams. The (slot, sign)
-    payload rides a stable sort on the keys, so the order inside a bucket
-    is the stream order (JAX's unstable sort leaves it arbitrary; bucket
-    sums agree as points, not as xyzz words). `impl`: 'prefix' (prefix
-    scan + boundary differences) or 'segmented' (head/tail/emission
-    reduction)."""
+    slots/keys/signs: int/int/bool flat [N] streams (_sort_stream).
+    `impl`: 'prefix' (prefix scan + boundary differences) or 'segmented'
+    (head/tail/emission reduction)."""
     if impl not in BUCKET_IMPLS:
         raise ValueError(f"bucket_impl must be one of {BUCKET_IMPLS}, got {impl!r}")
-    payload = (slots.to(torch.int32) << 1) | signs.to(torch.int32)
-    keys_s, perm = torch.sort(keys.to(torch.int32), stable=True)
-    payload_s = payload[perm]
-    signs_s = (payload_s & 1) != 0
-    slots_s = payload_s >> 1
+    keys_s, slots_s, signs_s = _sort_stream(slots, keys, signs)
     if impl == "prefix":
         return bucket_sums_prefix(curve, table, slots_s, signs_s, keys_s,
                                   n_buckets)
@@ -150,23 +166,31 @@ class MsmPlan:
     # stock: the raw fixed points and their rows
     points: Optional[AffinePoint] = None
     points_rows: Optional[PackedRows32] = None
+    # table row order: "i" the reference's (above), "j" window-major (the
+    # streamed builders): CHES 3*(j*n+i)+m-1, BGMW j*n+i
+    layout: str = "i"
 
 
-def ches_slots(i_idx, j_idx, m1, h: int):
-    """Table row of the (i, j, m) CHES precompute entry in the reference's
-    row order (the JAX package's "i" layout; the window-major "j" layout of
-    its streamed big-n builders is not ported)."""
+def ches_slots(i_idx, j_idx, m1, h: int, n: int = 0, layout: str = "i"):
+    """Table row of the (i, j, m) CHES precompute entry: 3*(i*h+j)+m-1 in
+    the reference's "i" layout, 3*(j*n+i)+m-1 in the window-major "j"
+    layout of n points."""
+    if layout == "j":
+        return 3 * (j_idx * n + i_idx) + m1
     return 3 * (i_idx * h + j_idx) + m1
 
 
-def bgmw_slots(i_idx, j_idx, h: int):
-    """Table row of the (i, j) BGMW95 entry, "i" layout."""
+def bgmw_slots(i_idx, j_idx, h: int, n: int = 0, layout: str = "i"):
+    """Table row of the (i, j) BGMW95 entry: i*h+j ("i"), j*n+i ("j")."""
+    if layout == "j":
+        return j_idx * n + i_idx
     return i_idx * h + j_idx
 
 
 def bgmw_table_slots(plan: MsmPlan, slots):
     """The BGMW table and its slots: the dedicated nh table, or the stride-3
-    view of the 3nh CHES table when the radixes match (its m=1 rows)."""
+    view of the 3nh CHES table when the radixes match: its m=1 rows, at
+    3*slot in both layouts (3*(i*h+j) and 3*(j*n+i))."""
     if plan.table_nh is not None:
         return plan.table_nh, slots
     if plan.bgmw_stride3 and plan.table3nh is not None:
@@ -181,19 +205,15 @@ def _ches_query(plan: MsmPlan, slots, keys, signs, impl) -> JacPoint:
         integrate_gapped(plan.curve, buckets, plan.gap_groups))
 
 
-def msm_ches_device(plan: MsmPlan, scalars: torch.Tensor,
-                    bucket_impl: str = "prefix") -> JacPoint:
-    """CHES 'nh + 0.21q' MSM with on-device integral scalar conversion.
-
-    scalars: int32[8, n] (recode.to_device) on the plan's device. Returns a
-    Jacobian batch of 1. Query path: zero doublings (reference
-    main_p1.cpp:192-246 + multi_scalar.c:421-463)."""
-    cfg = plan.cfg
+def _ches_streams(plan: MsmPlan, scalars: torch.Tensor):
+    """The CHES digit stream of the device recode, flat [n*h]: (slots in
+    the plan's layout, bucket keys, signs)."""
     if plan.noindexhash:
         raise NotImplementedError("the noindexhash variant is not ported yet")
     if plan.packed_table is None:
         raise NotImplementedError("the port's CHES query needs the packed "
                                   "digit table (build_plan attaches it)")
+    cfg = plan.cfg
     n = scalars.shape[1]
     h = cfg.h
     dev = scalars.device
@@ -201,9 +221,41 @@ def msm_ches_device(plan: MsmPlan, scalars: torch.Tensor,
     j_idx = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
     keys, m1, s = recode.ches_recode_device_packed(
         scalars, cfg.c, h, plan.packed_table)
-    slots = ches_slots(i_idx, j_idx, m1, h)
-    return _ches_query(plan, slots.reshape(-1), keys.reshape(-1),
-                       s.reshape(-1), bucket_impl)
+    slots = ches_slots(i_idx, j_idx, m1, h, n, plan.layout)
+    return slots.reshape(-1), keys.reshape(-1), s.reshape(-1)
+
+
+def _bgmw_streams(plan: MsmPlan, scalars: torch.Tensor):
+    """The BGMW95 digit stream, flat [n*h']: (the table it reads, slots in
+    that table, |digit| keys, signs). For tight configs (c'*h' <= 255) the
+    top digit bound exceeds q/2, so the group-order fold a -> r - a (and a
+    global sign flip) runs first, as the reference does on the host."""
+    cfg = plan.cfg
+    c, h = cfg.c_bgmw, cfg.h_bgmw
+    n = scalars.shape[1]
+    dev = scalars.device
+    scalars = recode.reduce_mod_r_device(scalars)
+    flip = None
+    if c * h <= 255:
+        scalars, flip = recode.fold_r_minus_a_device(scalars)
+    absd, sign = recode.signed_digits_device(scalars, c, h)  # [h, n]
+    if flip is not None:
+        sign = sign ^ flip[None, :]
+    i_idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    j_idx = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    table, slots = bgmw_table_slots(
+        plan, bgmw_slots(i_idx, j_idx, h, n, plan.layout))
+    return table, slots.reshape(-1), absd.reshape(-1), sign.reshape(-1)
+
+
+def msm_ches_device(plan: MsmPlan, scalars: torch.Tensor,
+                    bucket_impl: str = "prefix") -> JacPoint:
+    """CHES 'nh + 0.21q' MSM with on-device integral scalar conversion.
+
+    scalars: int32[8, n] (recode.to_device) on the plan's device. Returns a
+    Jacobian batch of 1. Query path: zero doublings (reference
+    main_p1.cpp:192-246 + multi_scalar.c:421-463)."""
+    return _ches_query(plan, *_ches_streams(plan, scalars), bucket_impl)
 
 
 def msm_ches_host_recode(plan: MsmPlan, scalars_np: np.ndarray,
@@ -218,7 +270,7 @@ def msm_ches_host_recode(plan: MsmPlan, scalars_np: np.ndarray,
     keys = P.bucket_value_to_index(cfg.q, cfg.ah)[b]
     i_idx = np.arange(n, dtype=np.int64)[:, None]
     j_idx = np.arange(h, dtype=np.int64)[None, :]
-    slots = ches_slots(i_idx, j_idx, m - 1, h).astype(np.int32)
+    slots = ches_slots(i_idx, j_idx, m - 1, h, n, plan.layout).astype(np.int32)
     dev = plan.table3nh.XY.device
     return _ches_query(plan,
                        torch.as_tensor(slots.reshape(-1), device=dev),
@@ -229,27 +281,83 @@ def msm_ches_host_recode(plan: MsmPlan, scalars_np: np.ndarray,
 def msm_bgmw_device(plan: MsmPlan, scalars: torch.Tensor,
                     bucket_impl: str = "prefix") -> JacPoint:
     """BGMW95 q/2 variant, fully on the device (reference main_p1.cpp:
-    294-398). For tight configs (c*h <= 255) the top digit bound exceeds
-    q/2, so the group-order fold a -> r - a (and a global sign flip) runs
-    first, as the reference does on the host."""
-    cfg, curve = plan.cfg, plan.curve
-    c, h = cfg.c_bgmw, cfg.h_bgmw
-    n = scalars.shape[1]
-    dev = scalars.device
-    scalars = recode.reduce_mod_r_device(scalars)
-    flip = None
-    if c * h <= 255:
-        scalars, flip = recode.fold_r_minus_a_device(scalars)
-    absd, sign = recode.signed_digits_device(scalars, c, h)  # [h, n]
-    if flip is not None:
-        sign = sign ^ flip[None, :]
-    i_idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
-    j_idx = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
-    table, slots = bgmw_table_slots(plan, bgmw_slots(i_idx, j_idx, h))
-    buckets = _bucket_sums_stream(curve, table, slots.reshape(-1),
-                                  absd.reshape(-1), sign.reshape(-1),
-                                  (cfg.q_bgmw >> 1) + 1, bucket_impl)
+    294-398), with the consecutive-weight integration."""
+    curve = plan.curve
+    table, slots, keys, signs = _bgmw_streams(plan, scalars)
+    buckets = _bucket_sums_stream(curve, table, slots, keys, signs,
+                                  (plan.cfg.q_bgmw >> 1) + 1, bucket_impl)
     return curve.xyzz_to_jac(integrate_weighted_consecutive(curve, buckets))
+
+
+def _mul_small_xyzz(curve: CurveOps, pt: XyzzPoint, k: int) -> XyzzPoint:
+    """pt * k for a small positive int k (double-and-add on one point)."""
+    acc = pt
+    for bit in bin(k)[3:]:
+        acc = curve.xyzz_double(acc)
+        if bit == "1":
+            acc = curve.xyzz_dadd(acc, pt)
+    return acc
+
+
+def _bgmw_partials_ranged(curve: CurveOps, table, slots_s, signs_s, keys_s,
+                          starts, W: int):
+    """BGMW's bucket-range chunks with the consecutive-weight integration
+    fused into each: chunk k (buckets [kW, (k+1)W)) emits S_k = fold(b) and
+    T_k = sum_v v*b_v only, so no bucket array wider than W exists. Returns
+    (S, T), xyzz batches of K = len(starts) - 1."""
+    S, T = [], []
+    for b in bucket_ranges(curve, table, slots_s, signs_s, keys_s, starts, W):
+        T.append(integrate_weighted_consecutive(curve, b))
+        S.append(fold_xyzz(curve, b))
+
+    def stack(parts):
+        return XyzzPoint(*(torch.cat(cs, dim=-1) for cs in zip(*parts)))
+
+    return stack(S), stack(T)
+
+
+def msm_bign(plan: MsmPlan, scalars: torch.Tensor, algo: str = "ches",
+             n_chunks: Optional[int] = None) -> JacPoint:
+    """Big-n CHES (`algo="ches"`) or BGMW95 (`"bgmw"`) MSM with the bucket
+    accumulation split into `n_chunks` bucket ranges (port of JAX's
+    jit_msm_bign, one plain function): the digit stream, one stable sort,
+    one host read of the K+1 chunk starts in the sorted stream, then a host
+    loop over the chunks, each on its exact slice of the stream.
+
+    CHES concatenates the chunks' buckets and integrates them once
+    (integrate_gapped). BGMW integrates inside each chunk: chunk k emits
+    S_k and T_k, and the total is W * sum_k k*S_k + sum_k T_k. n_chunks
+    None: one chunk for CPU tensors; on the card, as many as the free
+    device memory needs (prefix_pipeline.chunks_for)."""
+    curve, cfg = plan.curve, plan.cfg
+    if algo == "ches":
+        table = plan.table3nh
+        slots, keys, signs = _ches_streams(plan, scalars)
+        n_buckets = cfg.b_size
+    elif algo == "bgmw":
+        table, slots, keys, signs = _bgmw_streams(plan, scalars)
+        n_buckets = (cfg.q_bgmw >> 1) + 1
+    else:
+        raise ValueError(f"msm_bign: algo must be 'ches' or 'bgmw', got "
+                         f"{algo!r}")
+    keys_s, slots_s, signs_s = _sort_stream(slots, keys, signs)
+    del slots, keys, signs
+    K = n_chunks or chunks_for(curve, keys_s)
+    starts, W = segment_starts(keys_s, n_buckets, K)
+    starts = starts.tolist()  # the one host read of the query
+    if algo == "ches":
+        buckets = bucket_sums_prefix_ranged(curve, table, slots_s, signs_s,
+                                            keys_s, n_buckets, starts)
+        return curve.xyzz_to_jac(
+            integrate_gapped(curve, buckets, plan.gap_groups))
+    S, T = _bgmw_partials_ranged(curve, table, slots_s, signs_s, keys_s,
+                                 starts, W)
+    total = fold_xyzz(curve, T)
+    if K > 1:
+        hi = _mul_small_xyzz(curve, integrate_weighted_consecutive(curve, S),
+                             W)
+        total = curve.xyzz_dadd(hi, total)
+    return curve.xyzz_to_jac(total)
 
 
 def msm_stock_pippenger(plan: MsmPlan, scalars: torch.Tensor,

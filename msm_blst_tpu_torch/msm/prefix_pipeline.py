@@ -22,6 +22,11 @@ power-of-two lane count of at most 8192, set by its TPU blocks), so the
 local prefixes and tails there are other xyzz words than JAX's and the
 bucket sums the same points; smaller streams keep its shape and words.
 
+Big streams: `bucket_sums_prefix` splits a stream too large for the free
+device memory into parts by position, merged with one K2 dadd each;
+`bucket_sums_prefix_ranged` (engine.msm_bign) splits it by bucket range
+into exact slices of the sorted stream (`segment_starts`).
+
 Every index the pipeline forms is in range by construction: the stream is
 padded to c*n_ch, positions come from searchsorted and a boundary at 0 is
 infinity, so nothing relies on JAX's silent clamping of out-of-range
@@ -30,10 +35,13 @@ gathers.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..curves import cuda_point
 from ..curves.ops import PackedRows32, XyzzPoint
+from ..device import budget_bytes
 from ..utils.scans import pick_chunk
 from . import cuda_scan, scan
 from .scan import prefix_scan_xyzz
@@ -105,26 +113,95 @@ def buckets_from_boundaries(curve, local, tails: XyzzPoint, keys_s,
     return cuda_point.bucket_diffs(curve, right, local, incl, c, n_ch)
 
 
-_STREAM_CHUNK_ELEMS = 7 * 1024 * 1024
+def element_bytes(curve) -> int:
+    """Device bytes one stream element costs in _bucket_sums_prefix_single
+    at its peak: its gathered table row (8W B, W = curve.F.n_words) and the
+    row's X and Y split out of it (8W B), its level row of four xyzz
+    coordinates (16W B), and its stream words (the column-major slot and
+    sign, the int64 gather index: 24 B at most)."""
+    return 32 * curve.F.n_words + 24
+
+
+def chunks_for(curve, keys_s) -> int:
+    """How many parts the key-sorted stream `keys_s` takes so that one
+    part's _bucket_sums_prefix_single fits the device memory free now
+    (device.budget_bytes); one for CPU tensors."""
+    N = keys_s.shape[0]
+    if keys_s.device.type == "cpu" or N == 0:
+        return 1
+    fit = max(1, budget_bytes(keys_s.device) // element_bytes(curve))
+    return -(-N // fit)
 
 
 def bucket_sums_prefix(curve, table, slots_s, signs_s, keys_s,
-                       n_buckets: int) -> XyzzPoint:
+                       n_buckets: int, chunks: Optional[int] = None
+                       ) -> XyzzPoint:
     """Per-key sums of a key-sorted signed digit stream, as a dense xyzz
-    bucket array of n_buckets (bucket 0 included). Single pass: the
-    sub-stream chunking of very large streams is not ported yet."""
+    bucket array of n_buckets (bucket 0 included).
+
+    A stream too large for one pass (chunks_for; `chunks` sets the count)
+    is split by position into that many consecutive parts, as the JAX
+    package does (prefix_pipeline.py:247-289): each part is itself
+    key-sorted, so its bucket array comes from the same boundary trick, and
+    the parts' arrays merge with one bucket-wide K2 dadd each. CPU tensors
+    take one pass unless `chunks` is given."""
     N = keys_s.shape[0]
-    if N > _STREAM_CHUNK_ELEMS:
-        raise NotImplementedError(
-            f"streams above {_STREAM_CHUNK_ELEMS} elements need the chunked "
-            "pipeline, which is not ported yet")
-    return _bucket_sums_prefix_single(curve, table, slots_s, signs_s, keys_s,
-                                      n_buckets)
+    chunks = chunks or chunks_for(curve, keys_s)
+    if chunks <= 1 or N == 0:
+        return _bucket_sums_prefix_single(curve, table, slots_s, signs_s,
+                                          keys_s, n_buckets)
+    part = -(-N // chunks)
+    acc = None
+    for lo in range(0, N, part):
+        sl = slice(lo, lo + part)
+        b = _bucket_sums_prefix_single(curve, table, slots_s[sl], signs_s[sl],
+                                       keys_s[sl], n_buckets)
+        acc = b if acc is None else curve.xyzz_dadd(acc, b)
+    return acc
+
+
+def segment_starts(keys_s, n_buckets: int, n_chunks: int):
+    """Where each bucket-range chunk starts in the key-sorted stream: chunk
+    k owns buckets [k*W, (k+1)*W), W = ceil(n_buckets / n_chunks), and its
+    stream segment is [starts[k], starts[k+1]). Returns (int32[n_chunks +
+    1] on the stream's device, W)."""
+    W = -(-n_buckets // n_chunks)
+    marks = torch.arange(n_chunks + 1, dtype=keys_s.dtype,
+                         device=keys_s.device) * W
+    return torch.searchsorted(keys_s, marks, out_int32=True), W
+
+
+def bucket_ranges(curve, table, slots_s, signs_s, keys_s, starts, W: int):
+    """Each bucket-range chunk's W buckets in turn: chunk k runs the prefix
+    pipeline on its exact slice [starts[k], starts[k+1]) of the key-sorted
+    stream with keys - k*W. `starts`: host ints (segment_starts, read
+    once). Each slice is as long as its buckets' digits: there is no
+    padding, no sentinel key and no shared segment length to round up."""
+    for k in range(len(starts) - 1):
+        sl = slice(starts[k], starts[k + 1])
+        yield _bucket_sums_prefix_single(curve, table, slots_s[sl],
+                                         signs_s[sl], keys_s[sl] - k * W, W)
+
+
+def bucket_sums_prefix_ranged(curve, table, slots_s, signs_s, keys_s,
+                              n_buckets: int, starts) -> XyzzPoint:
+    """bucket_sums_prefix with the stream split by BUCKET RANGE (port of
+    prefix_pipeline.py:291-345): chunk k computes only its own W buckets,
+    so the boundary work totals one pass over the buckets and the chunks'
+    disjoint arrays concatenate without a merge. `starts`: the K + 1 host
+    ints of segment_starts(keys_s, n_buckets, K)."""
+    W = -(-n_buckets // (len(starts) - 1))
+    parts = list(bucket_ranges(curve, table, slots_s, signs_s, keys_s,
+                               starts, W))
+    return XyzzPoint(*(torch.cat(cs, dim=-1)[..., :n_buckets]
+                       for cs in zip(*parts)))
 
 
 def _bucket_sums_prefix_single(curve, table, slots_s, signs_s, keys_s,
                                n_buckets: int) -> XyzzPoint:
     N = keys_s.shape[0]
+    if N == 0:  # an empty bucket range: no level to launch
+        return curve.xyzz_inf((n_buckets,), keys_s.device)
     c, n_ch = stream_shape(N)
     slots_cm, signs_cm = column_major_streams(slots_s, signs_s, c, n_ch)
     rx, ry = gather_rows(curve, table, slots_cm, c, n_ch)

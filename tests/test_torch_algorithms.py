@@ -9,13 +9,15 @@ integration: tests/test_torch_scan.py).
   word's sign bit set, the unsigned-compare hazard).
 * build_bgmw_table equals JAX's nh table word for word on a config that is
   not aliased (c'=5, h'=51); build_plan aliases the nh table into the 3nh
-  table exactly when the radixes match; plan_from_jax converts a JAX
-  BGMW/stock plan.
+  table exactly when the radixes match, in the streamed builders' "j"
+  layout too; plan_from_jax converts a JAX BGMW/stock plan.
 * msm_bgmw_device (aliased c=8, h=32 and the tight c'=5, h'=51 that runs the
   r - a fold) and msm_ches_host_recode, each with both bucket strategies, on
   scalars 0, r-1 and a repeated scalar: the affine result equals the oracle,
   and BGMW's equals JAX's msm_bgmw_device.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -142,8 +144,15 @@ def test_build_plan_aliases_bgmw_when_the_radixes_match(points, plans):
                      stock=False)
     assert not own.bgmw_stride3 and own.table3nh is None
     assert torch.equal(own.table_nh.XY, aliased.table3nh.XY[0::3])
-    with pytest.raises(NotImplementedError):
-        build_plan(G1, points, params.make_config(4, **ALIASED), streamed=True)
+    # the streamed builders ("j" layout) alias the same way (two windows)
+    small = dataclasses.replace(params.make_config(4, **ALIASED), h=2,
+                                h_bgmw=2)
+    both = build_plan(G1, points, small, stock=False, streamed=True)
+    nh = build_plan(G1, points, small, ches=False, stock=False, streamed=True)
+    assert both.layout == nh.layout == "j"
+    assert both.bgmw_stride3 and both.table_nh is None
+    assert not nh.bgmw_stride3 and nh.table3nh is None
+    assert torch.equal(nh.table_nh.XY, both.table3nh.XY[0::3])
 
 
 def test_plan_from_jax_bgmw_and_stock(points, jax_plan):

@@ -640,3 +640,72 @@ def test_integrate_gapped_on_the_card(dev, name):
         out[d.type] = curve.affine_to_ints(
             curve.jac_to_affine(curve.xyzz_to_jac(acc)))
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_streamed_build_on_the_card_matches_cpu(dev, name):
+    """The window-major builders on the card (the point split by the free
+    memory, and in 3 parts) equal their CPU build word for word."""
+    import dataclasses
+
+    from msm_blst_tpu_torch.msm import (build_bgmw_table_rows_streamed,
+                                        build_ches_table_rows_streamed,
+                                        params)
+
+    curve = _curve(name)
+    cpu_pts = _points(40, torch.device("cpu"), name)
+    card_pts = type(cpu_pts)(*(c.to(dev) for c in cpu_pts))
+    cfg = dataclasses.replace(params.make_config(6, c=8, h=32), h=3, h_bgmw=2)
+    for build in (build_ches_table_rows_streamed,
+                  build_bgmw_table_rows_streamed):
+        want = build(curve, cpu_pts, cfg).XY
+        for parts in (None, 3):
+            got = build(curve, card_pts, cfg, parts=parts).XY
+            assert torch.equal(got.cpu(), want), (build.__name__, parts)
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_msm_bign_on_the_card(dev, name):
+    """A streamed plan on the card; msm_bign (CHES and BGMW95) at the chunk
+    count the free memory gives and at 3, msm_ches_device, the bucket sums
+    with the stream split in 3 by position against one pass, and the plan's
+    cache round trip."""
+    import tempfile
+
+    from msm_blst_tpu_torch.msm import (build_plan, engine, fixed_point_list,
+                                        load_plan, msm_bign, msm_ches_device,
+                                        params, prefix_pipeline, recode,
+                                        save_plan)
+
+    curve = _curve(name)
+    n = 64
+    cfg = params.make_config(6, c=8, h=32)
+    plan = build_plan(curve, fixed_point_list(curve, n, device=dev), cfg,
+                      streamed=True, stock=False)
+    assert plan.layout == "j" and plan.bgmw_stride3
+    ints = recode.scalars_to_ints(recode.random_scalars(n, seed=4))
+    ints[0], ints[1], ints[2] = 0, R_ORDER - 1, ints[3]
+    sc = recode.to_device(recode.scalars_from_ints(ints), dev)
+    total = sum(s * pow(2, i + 1, R_ORDER) for i, s in enumerate(ints)) % R_ORDER
+    want = _oracle(name, total)
+
+    def affine(jac):
+        return curve.affine_to_ints(curve.jac_to_affine(jac))[0]
+
+    for algo in ("ches", "bgmw"):
+        for K in (None, 3):
+            assert affine(msm_bign(plan, sc, algo, n_chunks=K)) == want
+    assert affine(msm_ches_device(plan, sc)) == want
+    keys_s, slots_s, signs_s = engine._sort_stream(
+        *engine._ches_streams(plan, sc))
+    sums = [prefix_pipeline.bucket_sums_prefix(
+        curve, plan.table3nh, slots_s, signs_s, keys_s, cfg.b_size,
+        chunks=chunks) for chunks in (1, 3)]
+    assert len({tuple(curve.affine_to_ints(curve.jac_to_affine(
+        curve.xyzz_to_jac(b)))) for b in sums}) == 1
+    with tempfile.TemporaryDirectory() as d:
+        save_plan(plan, d)
+        loaded = load_plan(curve, cfg, n, d, device=dev)
+    assert loaded.layout == "j" and loaded.bgmw_stride3
+    assert torch.equal(loaded.table3nh.XY, plan.table3nh.XY)
+    assert affine(msm_bign(loaded, sc, "bgmw")) == want
