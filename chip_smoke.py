@@ -67,11 +67,28 @@ Phases, each reported on its own lines:
      on two scalar sets), each path launching the G2 kernels (and K1 or
      K6, which Fp2's products run through) and none of the G1 point and
      level kernels;
-  8. bign: streamed plans (the window-major "j" layout) at n = 2^21
+  8. harness: the reference's harness on the port: drivers/run_msm.py
+     (run_msm.main) over its five methods at CONFIGS[16], G1 on two
+     scalar sets (its plan cached to a temporary directory and loaded
+     back for the noindexhash query under the segmented strategy, which
+     must launch K5's level and scan) and G2 on one, every method equal
+     to the others and to the oracle, each method's launches a path of
+     its own (G1_run_msm_ches_noindexhash, ...; the noindexhash path
+     launching the kernels of the index-keyed CHES path); the stage
+     profilers profile_stages at 2^16 and bign_profile at 2^19 (CHES and
+     BGMW95), each printing its JSON line; entry()'s query on the card
+     against the oracle; curves/mult.py (point_mult, ladder_mult,
+     msm_wbits, points_add, in_group_device) on G1 at 256 lanes and G2 at
+     64, the scalars 0, 1 and r - 1 and the point at infinity among them
+     (G1: a point outside the subgroup too), against the oracle, each
+     path with its K1 and K2 launches by batch size;
+  9. bign: streamed plans (the window-major "j" layout) at n = 2^21
      (params.CONFIGS[21], the BGMW table aliased into the 3nh one) on G1
      and G2, with their build times and peak device memory; on G1
      msm_ches_device and msm_bign (CHES and BGMW95) at the chunk count the
-     free memory gives and at BIGN_CHUNKS, on G2 msm_bign CHES and BGMW;
+     free memory gives and at BIGN_CHUNKS, and msm_ches_device with
+     noindexhash=True (2,097,154 value buckets); on G2 msm_bign CHES and
+     BGMW;
      then CONFIGS[20]'s BGMW-only plan (its own nh table) on G1 and its
      msm_bign; each query after a warm-up on BIGN_SEEDS (G2 and 2^20:
      G2_BIGN_SEEDS), against the oracle, with its mean and min ms, peak
@@ -82,7 +99,7 @@ Phases, each reported on its own lines:
      batch and at a window's 3n lanes, each against its plain version;
      the 2^16 plan through the cache (save_plan, load_plan) and two
      queries from the loaded plan;
-  9. a JSON line of per-kernel results (the new shapes under
+ 10. a JSON line of per-kernel results (the new shapes under
      "at_<shape>"), then the final status line.
 
 It catches no exception: any failure exits non-zero before the last line.
@@ -1051,10 +1068,16 @@ def counters():
     return {k.name: k for k in kernels.ALL_KERNELS}
 
 
-def reset_counts():
-    torch.cuda.synchronize()
+def zero_counts():
+    """Every kernel's launch count and batch sizes set to 0 (the host's
+    counts: no wait for the card)."""
     for k in counters().values():
         k.reset()
+
+
+def reset_counts():
+    torch.cuda.synchronize()
+    zero_counts()
     LEVEL_SHAPES.clear()
     SEG_SHAPES.clear()
     LEVEL_CALLS.clear()
@@ -1075,13 +1098,15 @@ def print_batches(path: str) -> None:
                   f"([launches, elements]); commonest {common}")
 
 
-def read_counts(path: str, names, unused=()) -> dict:
-    """The path's launch counts; fails if one of its kernels (`names`) never
+def check_path(path: str, launches: dict, names, unused=(),
+               batches: bool = False) -> dict:
+    """Prints the path's launch counts `launches` (and, with `batches`, the
+    counters' batch sizes); fails if one of its kernels (`names`) never
     ran, or if a kernel it must not run (`unused`: the other bucket
     strategy's, the other curve's) did."""
-    launches = {name: k.launches for name, k in counters().items()}
     print(f"{path}: launches {launches}")
-    print_batches(path)
+    if batches:
+        print_batches(path)
     idle = [name for name in names if launches[name] == 0]
     if idle:
         raise AssertionError(f"{path} never launched: {idle}")
@@ -1089,6 +1114,13 @@ def read_counts(path: str, names, unused=()) -> dict:
     if stray:
         raise AssertionError(f"{path} launched {stray}")
     return launches
+
+
+def read_counts(path: str, names, unused=()) -> dict:
+    """The path's launch counts since they were set to 0, checked as
+    check_path does."""
+    return check_path(path, {name: k.launches for name, k in
+                             counters().items()}, names, unused, batches=True)
 
 
 # The kernels each query launches: the integration's suffix scans (K4)
@@ -1313,6 +1345,295 @@ def phase_algorithms(dev, case, seeds):
         if integration == "gapped":
             check_ches_k2(f"{label} {name}", case,
                           paths[f"{curve.name}_{name}"], 1 + len(qseeds))
+    return paths
+
+
+# The harness phase: the reference's harness (drivers/run_msm.py) over its
+# five methods, the two stage profilers, the flagship entry and curves/mult.py
+HARNESS_REPS = {"G1": 2, "G2": 1}  # run_msm's scalar sets, by curve
+PROFILE_LOG = 16  # profile_stages' n
+BIGN_PROFILE_LOG = 19  # bign_profile's n (its JAX default)
+MULT_LANES = {"G1": 256, "G2": 64}
+# the K2 formulas each function of curves/mult.py launches (the ladder's XZ
+# formulas run on K1 alone); the others it must not
+MULT_OPS = {"point_mult": ["point_double", "point_dadd_affine"],
+            "ladder_mult": [],
+            "msm_wbits": ["point_double", "point_dadd_affine", "point_dadd"],
+            "points_add": ["point_dadd"]}
+RUN_MSM_PATHS = {  # run_msm's method -> its path's name after the curve's
+    "CHES q/5 (host conversion)": "run_msm_ches_host_recode",
+    "CHES q/5 (integral device conversion)": "run_msm_ches_device",
+    "CHES q/5 noindexhash": "run_msm_ches_noindexhash",
+    "BGMW95 q/2": "run_msm_bgmw",
+    "stock Pippenger (no precompute)": "run_msm_stock",
+}
+# each run_msm path's integration (a "gapped" one, CHES, launches no K2
+# formula of its own)
+RUN_MSM_KINDS = {"run_msm_ches_host_recode": "gapped",
+                 "run_msm_ches_device": "gapped",
+                 "run_msm_ches_noindexhash": "gapped",
+                 "run_msm_bgmw": "weighted", "run_msm_stock": "weighted"}
+
+
+def method_counter(prefix: str, paths: dict):
+    """run_msm's `around`: each method's calls counted as a path of its own
+    (`prefix`_RUN_MSM_PATHS[method]), the counts set to 0 just before each
+    call and added to the path's just after."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def around(name):
+        zero_counts()
+        yield
+        path = paths.setdefault(f"{prefix}_{RUN_MSM_PATHS[name]}",
+                                {n: 0 for n in counters()})
+        for n, k in counters().items():
+            path[n] += k.launches
+    return around
+
+
+def harness_run_msm(dev, case, cache_dir=None) -> dict:
+    """run_msm.main at CONFIGS[16] over the five methods (the oracle
+    checked, every method equal to the others, or the driver exits 1); each
+    method's launches a path of its own, holding the kernels of its query
+    and, for the CHES ones, K2's boundary and Horner launches once a query
+    and no K2 formula of their own; the noindexhash path launches the same
+    kernels as the index-keyed CHES path."""
+    from msm_blst_tpu_torch.drivers import run_msm
+
+    name = case.curve.name
+    reps = HARNESS_REPS[name]
+    argv = ["--group", name[1], "--config", str(N_LOG), "--reps", str(reps),
+            "--oracle", "--json", "--device", str(dev)]
+    if cache_dir:
+        argv += ["--cache-dir", cache_dir]
+    paths = {}
+    t0 = time.perf_counter()
+    rec = run_msm.main(argv, around=method_counter(name, paths))
+    print(f"{name} harness run_msm: {time.perf_counter() - t0:.3f} s; means "
+          f"(us) {rec['means_us']}, host conversion {rec['conversion_us']:.1f}"
+          " us")
+    queries = 2 * reps  # each set: a warm-up and one timed loop of one
+    for path, launches in paths.items():
+        kind = RUN_MSM_KINDS[path[len(name) + 1:]]
+        other = [op for i, ops in INTEGRATION_KERNELS.items() if i != kind
+                 for op in ops] + (K2_FORMULAS if kind == "gapped" else [])
+        check_path(path, launches, *path_kernels(
+            case, query_kernels(kind, "prefix"), "prefix", unused_ops=other))
+        per_query(path, case, launches, queries)
+        if kind == "gapped":
+            check_ches_k2(path, case, launches, queries)
+    used = {p: {n for n, v in paths[f"{name}_{p}"].items() if v}
+            for p in ("run_msm_ches_device", "run_msm_ches_noindexhash")}
+    if used["run_msm_ches_device"] != used["run_msm_ches_noindexhash"]:
+        raise AssertionError(f"{name}: the noindexhash path launched "
+                             f"{sorted(used['run_msm_ches_noindexhash'])}, the"
+                             f" CHES path {sorted(used['run_msm_ches_device'])}")
+    return paths
+
+
+def harness_noindexhash_segmented(dev, case, cache_dir) -> dict:
+    """The noindexhash CHES query with the segmented strategy on the plan
+    run_msm cached (loaded back): against the oracle, launching K5's level
+    (at seg_level_shape) and scan once a query, never K3."""
+    import dataclasses
+
+    from msm_blst_tpu_torch.msm import load_plan, msm_ches_device, params
+
+    n, cfg = 1 << N_LOG, params.CONFIGS[N_LOG]
+    label = f"{case.curve.name} noindexhash segmented"
+    plan = load_plan(case.curve, cfg, n, cache_dir, device=dev)
+    nih = dataclasses.replace(plan, noindexhash=True)
+    bc = BignCase(case, n, (WARM_SEED,) + G2_BIGN_SEEDS, dev)
+    reset_counts()
+    query = functools.partial(msm_ches_device, nih, bucket_impl="segmented")
+    bc.check(label, WARM_SEED, query(bc.scalars[WARM_SEED]), nih.curve)
+    times = []
+    for s in G2_BIGN_SEEDS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        jac = query(bc.scalars[s])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        bc.check(label, s, jac, nih.curve)
+    print(f"{label}: {len(times)} queries equal to the oracle; query mean "
+          f"{1e3 * sum(times) / len(times):.3f} ms ({(cfg.q >> 1) + 2} value "
+          "buckets)")
+    launches = read_counts(label, *path_kernels(
+        case, query_kernels("gapped", "segmented"), "segmented",
+        unused_ops=K2_FORMULAS))
+    check_level_shapes(label, n * cfg.h, "segmented")
+    queries = 1 + len(times)
+    check_seg_launches(label, case, launches, queries, 1)
+    per_query(label, case, launches, queries)
+    return launches
+
+
+def harness_profilers(dev) -> dict:
+    """profile_stages at n = 2^16 and bign_profile at 2^19 (CHES and
+    BGMW95) on G1, each a path of its own and printing its JSON line."""
+    from msm_blst_tpu_torch.drivers import bign_profile, profile_stages
+
+    g1 = CurveCase("G1")
+    paths = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    profile_stages.main(["--n-exp", str(PROFILE_LOG), "--device", str(dev)])
+    print(f"G1 profile_stages 2^{PROFILE_LOG}: {time.perf_counter() - t0:.3f} s")
+    paths[f"G1_profile_stages_2^{PROFILE_LOG}"] = read_counts(
+        "G1 profile_stages", *path_kernels(
+            g1, query_kernels("gapped", "prefix"), "prefix"))
+    for algo, kind in (("ches", "gapped"), ("bgmw", "weighted")):
+        reset_counts()
+        t0 = time.perf_counter()
+        bign_profile.main(["--n-exp", str(BIGN_PROFILE_LOG), "--algo", algo,
+                           "--device", str(dev)])
+        print(f"G1 bign_profile 2^{BIGN_PROFILE_LOG} {algo}: "
+              f"{time.perf_counter() - t0:.3f} s")
+        paths[f"G1_bign_profile_{algo}_2^{BIGN_PROFILE_LOG}"] = read_counts(
+            f"G1 bign_profile {algo}", *path_kernels(
+                g1, query_kernels(kind, "prefix"), "prefix"))
+        torch.cuda.empty_cache()
+    return paths
+
+
+def harness_entry(dev) -> dict:
+    """entry(): fn(*example_args) on the card against the oracle."""
+    from msm_blst_tpu_torch.entry import entry
+
+    g1 = CurveCase("G1")
+    reset_counts()
+    fn, args = entry()
+    jac = fn(*args)
+    if args[0].device.type != "cuda":
+        raise AssertionError("entry() did not default to the card")
+    oracle_check(g1, 64)(7, jac)
+    print("G1 entry: fn(*example_args) on the card equals the oracle")
+    return read_counts("G1 entry", *path_kernels(
+        g1, query_kernels("gapped", "prefix"), "prefix"))
+
+
+def outside_subgroup():
+    """A point of y^2 = x^3 + 4 over Fp that r does not kill (the first from
+    x = 2 on; p = 3 mod 4, so y = a^((p+1)/4) when a is a square)."""
+    from msm_blst_tpu_torch import refimpl
+    from msm_blst_tpu_torch.constants import P, R_ORDER
+
+    ref = refimpl.G1
+    x = 1
+    while True:
+        x += 1
+        a = (x * x * x + 4) % P
+        y = pow(a, (P + 1) // 4, P)
+        if y * y % P != a:
+            continue
+        acc = ref.INF
+        for bit in bin(R_ORDER)[2:]:
+            acc = ref.add(acc, acc)
+            if bit == "1":
+                acc = ref.add(acc, (x, y))
+        if acc != ref.INF:
+            return x, y
+
+
+def harness_mult(dev, case) -> dict:
+    """curves/mult.py on the card, MULT_LANES lanes of fixed points: the
+    scalars 0, 1 and r - 1 in lanes 0-2 and the point at infinity in lane
+    3; point_mult and ladder_mult lane by lane, msm_wbits and points_add
+    (the sum) and in_group_device (G1 with a point outside the subgroup in
+    lane 4) against the oracle; each a path, with its K1 and K2 launches by
+    batch size."""
+    from msm_blst_tpu_torch import refimpl
+    from msm_blst_tpu_torch.constants import R_ORDER
+    from msm_blst_tpu_torch.curves import (AffinePoint, in_group_device,
+                                           ladder_mult, msm_wbits, point_mult,
+                                           points_add)
+    from msm_blst_tpu_torch.msm import fixed_point_list, recode
+
+    curve = case.curve
+    name, n = curve.name, MULT_LANES[curve.name]
+    ref = refimpl.CURVES[name]
+    pts = fixed_point_list(curve, n, device=dev)
+    inf = torch.arange(n, device=dev) == 3
+    pts = AffinePoint(*(torch.where(inf, 0, c) for c in pts))
+    ks = recode.scalars_to_ints(recode.random_scalars(n, 41))
+    ks[:3] = [0, 1, R_ORDER - 1]
+    sc = recode.to_device(recode.scalars_from_ints(ks), dev)
+    e = [0 if i == 3 else pow(2, i + 1, R_ORDER) for i in range(n)]
+    lanes = [ref.mult(k * ei % R_ORDER) for k, ei in zip(ks, e)]
+    total = ref.mult(sum(k * ei for k, ei in zip(ks, e)) % R_ORDER)
+    in_group = [True] * n
+    if name == "G1":
+        bad = curve.affine_from_ints([outside_subgroup()], device=dev)
+        pts = AffinePoint(*(torch.cat([c[:, :4], b, c[:, 5:]], dim=1)
+                            for c, b in zip(pts, bad)))
+        in_group[4] = False
+    # the lanes the oracle's points are on (G1's lane 4 is not)
+    keep = [i for i in range(n) if name != "G1" or i != 4]
+    on = AffinePoint(*(c[..., keep] for c in pts))
+    wbits = ref.mult(sum(ks[i] * e[i] for i in keep) % R_ORDER)
+    calls = [  # (function, call, the oracle's affine points at `keep`)
+        ("point_mult", lambda: point_mult(curve, sc, pts),
+         [lanes[i] for i in keep]),
+        ("ladder_mult", lambda: ladder_mult(curve, sc, pts),
+         [lanes[i] for i in keep]),
+        ("msm_wbits", lambda: msm_wbits(curve, sc[:, keep], on), [wbits]),
+        ("points_add", lambda: points_add(curve, on),
+         [ref.mult(sum(e[i] for i in keep) % R_ORDER)]),
+    ]
+    paths = {}
+    for fn_name, call, want in calls:
+        reset_counts()
+        t0 = time.perf_counter()
+        jac = call()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = curve.affine_to_ints(curve.jac_to_affine(jac))
+        if len(want) > 1:
+            got = [got[i] for i in keep]
+        if got != want:
+            raise AssertionError(f"{name} {fn_name}: differs from the oracle")
+        label = f"{name} mult {fn_name}"
+        print(f"{label}: {len(keep)} lanes equal to the oracle; {ms:.3f} ms")
+        paths[f"{name}_mult_{fn_name}"] = read_counts(
+            label, *path_kernels(case, MULT_OPS[fn_name],
+                                 unused_ops=[op for op in K2_FORMULAS
+                                             if op not in MULT_OPS[fn_name]]))
+    reset_counts()
+    t0 = time.perf_counter()
+    mask = in_group_device(curve, pts).tolist()
+    print(f"{name} mult in_group_device: {mask.count(True)} of {n} lanes in "
+          f"the group, {1e3 * (time.perf_counter() - t0):.3f} ms")
+    if mask != in_group:
+        raise AssertionError(f"{name} in_group_device: {mask} != {in_group}")
+    paths[f"{name}_mult_in_group_device"] = read_counts(
+        f"{name} mult in_group_device",
+        *path_kernels(case, MULT_OPS["point_mult"], unused_ops=["point_dadd"]))
+    return paths
+
+
+def phase_harness(dev, g1, g2):
+    """The reference's harness on the port: run_msm over its five methods
+    (G1: CONFIGS[16], two scalar sets, the plan cached and loaded back for
+    the noindexhash query under the segmented strategy; G2: one set), the
+    two stage profilers, entry() and curves/mult.py on both curves.
+    Returns the launch counts by path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory() as d:
+        paths.update(harness_run_msm(dev, g1, d))
+        paths["G1_noindexhash_segmented"] = harness_noindexhash_segmented(
+            dev, g1, d)
+    torch.cuda.empty_cache()
+    paths.update(harness_run_msm(dev, g2))
+    torch.cuda.empty_cache()
+    paths.update(harness_profilers(dev))
+    paths["G1_entry"] = harness_entry(dev)
+    for case in (g1, g2):
+        paths.update(harness_mult(dev, case))
+    print(f"harness phase: {time.perf_counter() - t0:.3f} s")
     return paths
 
 
@@ -1560,9 +1881,11 @@ def inversion_kernels(plan_launches, n: int):
 def phase_bign(dev, g1, g2):
     """Big n: streamed plans ("j" layout) and msm_bign at CONFIGS[21] on G1
     (CHES device, msm_bign CHES and BGMW at their own chunk count and at
-    BIGN_CHUNKS) and G2 (msm_bign CHES and BGMW), a BGMW-only plan of
+    BIGN_CHUNKS, the noindexhash CHES device query) and G2 (msm_bign CHES and BGMW), a BGMW-only plan of
     CONFIGS[20] (its own nh table) and the plan cache at 2^16. Returns the
     launch counts by path."""
+    import dataclasses
+
     from msm_blst_tpu_torch.msm import msm_bign, msm_ches_device, params
 
     paths = {}
@@ -1579,18 +1902,22 @@ def phase_bign(dev, g1, g2):
                    ("bign_bgmw", "weighted",
                     lambda s: msm_bign(plan, s, "bgmw"))]
         if name == "G1":
+            nih = dataclasses.replace(plan, noindexhash=True)
             queries = [("ches_device", "gapped",
                         lambda s: msm_ches_device(plan, s))] + queries + [
                 ("bign_ches_4", "gapped",
                  lambda s: msm_bign(plan, s, "ches", BIGN_CHUNKS)),
                 ("bign_bgmw_4", "weighted",
-                 lambda s: msm_bign(plan, s, "bgmw", BIGN_CHUNKS))]
+                 lambda s: msm_bign(plan, s, "bgmw", BIGN_CHUNKS)),
+                ("ches_device_noindexhash", "gapped",
+                 lambda s: msm_ches_device(nih, s))]
         for qname, integration, query in queries:
             paths[f"{key}_{qname}"] = bign_query(
                 f"{label} {qname}", bc, plan, query, seeds, integration)
         bign_kernels(case, plan, f"2^{BIGN_LOG}")
         if name == "G1":
             inversion_kernels(batches, n)
+            del nih
         del plan, bc
         torch.cuda.empty_cache()
     # CONFIGS[20]: c' = 20 differs from c = 22, so BGMW has its nh table
@@ -1725,10 +2052,10 @@ def main():
         "G2_ches_device": phase_main_path(dev, g2),
         "G2_ches_device_sos": phase_main_path(dev, g2, "sos", G2_SOS_SEEDS),
         **phase_algorithms(dev, g2, G2_ALGO_SEEDS)})
-    bign = phase_bign(dev, g1, g2)
-    if set(bign) & set(paths):
-        raise AssertionError(f"paths named twice: {set(bign) & set(paths)}")
-    paths.update(bign)
+    for more in (phase_harness(dev, g1, g2), phase_bign(dev, g1, g2)):
+        if set(more) & set(paths):
+            raise AssertionError(f"paths named twice: {set(more) & set(paths)}")
+        paths.update(more)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [

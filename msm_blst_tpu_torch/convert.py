@@ -70,19 +70,26 @@ def plan_from_jax(arrays: dict, cfg: P.MsmConfig, curve=G1,
     (uint32[nh, 2W]) and "bgmw_stride3" (bool) for BGMW; "points" (its (X,
     Y) limb arrays, uint32[24, n] or uint32[2, 24, n] each) for stock;
     "layout" (the JAX plan's row order: "i", the default, or "j" of its
-    streamed builders)."""
+    streamed builders); "noindexhash" (bool) with "packed_table_value"
+    (int32[q+1]) for the value-keyed CHES query."""
     device = resolve(device)
     layout = str(arrays.get("layout", "i"))
     if layout not in ("i", "j"):
         raise ValueError(f"layout must be 'i' or 'j', got {layout!r}")
     plan = MsmPlan(curve=curve, cfg=cfg, layout=layout,
-                   bgmw_stride3=bool(arrays.get("bgmw_stride3", False)))
+                   bgmw_stride3=bool(arrays.get("bgmw_stride3", False)),
+                   noindexhash=bool(arrays.get("noindexhash", False)))
     if arrays.get("table3nh") is not None:
         plan.table3nh = _rows(arrays["table3nh"], curve, device)
         packed = np.array(arrays["packed_table"], dtype=np.int32)
         if packed.ndim != 2:
             raise ValueError("packed_table: expected the pairs layout (q+1, 2)")
         plan.packed_table = torch.as_tensor(packed, device=device)
+        if arrays.get("packed_table_value") is not None:
+            value = np.array(arrays["packed_table_value"], dtype=np.int32)
+            if value.ndim != 1:
+                raise ValueError("packed_table_value: expected int32[q+1]")
+            plan.packed_table_value = torch.as_tensor(value, device=device)
         plan.bucket_gaps = np.array(arrays["bucket_gaps"], dtype=np.int32)
         plan.gap_groups = gap_groups(plan.bucket_gaps, device)
     if arrays.get("table_nh") is not None:

@@ -39,7 +39,7 @@ def _launch(curve, op, ins, extra, batch):
     B = ins[0].shape[1]
     outs = [torch.empty_like(ins[0]) for _ in range(4)]
     if B:
-        kernel(*map(ptr, ins + extra + outs), B)
+        kernel(*map(ptr, ins + extra + outs), B, batch=B)
     from .ops import XyzzPoint
 
     return XyzzPoint(*(o.reshape(curve.F.lead + batch) for o in outs))

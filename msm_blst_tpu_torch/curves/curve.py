@@ -12,6 +12,7 @@ from __future__ import annotations
 import functools
 from typing import Sequence
 
+from ..constants import B_G1, B_G2
 from ..device import resolve
 from ..fields.fp2 import FP2, fp2_for
 from ..fields.limb import FP, fp_for
@@ -21,6 +22,7 @@ from .ops import AffinePoint, CurveOps
 class G1Curve(CurveOps):
     def __init__(self, F=FP):
         super().__init__(F, "G1")
+        self.b_int = B_G1
 
     def affine_from_ints(self, pts: Sequence, device=None) -> AffinePoint:
         """[(x, y) ints] -> Montgomery-domain AffinePoint batch on `device`
@@ -36,6 +38,7 @@ class G1Curve(CurveOps):
 class G2Curve(CurveOps):
     def __init__(self, F=FP2):
         super().__init__(F, "G2")
+        self.b_int = B_G2
 
     def affine_from_ints(self, pts: Sequence, device=None) -> AffinePoint:
         """[((x0, x1), (y0, y1)) ints] -> Montgomery-domain AffinePoint batch

@@ -72,9 +72,22 @@ class CurveOps:
     def affine_is_inf(self, p: AffinePoint):
         return self.F.is_zero(p.X) & self.F.is_zero(p.Y)
 
+    def affine_inf(self, batch_shape=(), device=None):
+        z = self.F.zeros(batch_shape, device)
+        return AffinePoint(z, z)
+
+    def jac_is_inf(self, p: JacPoint):
+        return self.F.is_zero(p.Z)
+
     def jac_inf(self, batch_shape=(), device=None):
         one = self.F.one_mont(batch_shape, device)
         return JacPoint(one, one, self.F.zeros(batch_shape, device))
+
+    def jac_from_affine(self, p: AffinePoint) -> JacPoint:
+        """Lift affine to Jacobian (Z = 1); infinity to jac_inf."""
+        shape, dev = self.bshape(p.X), p.X.device
+        return self.select(self.affine_is_inf(p), self.jac_inf(shape, dev),
+                           JacPoint(p.X, p.Y, self.F.one_mont(shape, dev)))
 
     def xyzz_is_inf(self, p: XyzzPoint):
         return self.F.is_zero(p.ZZ) & self.F.is_zero(p.ZZZ)
@@ -209,6 +222,24 @@ class CurveOps:
         return AffinePoint(F.mul(p.X, inv[..., :B]), F.mul(p.Y, inv[..., B:]))
 
     # ---- layout utilities -----------------------------------------------------------
+    def concat(self, ps):
+        """Like-typed point batches joined along the batch (last) axis."""
+        return type(ps[0])(*(torch.cat(cs, dim=-1) for cs in zip(*ps)))
+
+    def tree_reduce_xyzz(self, p: XyzzPoint) -> XyzzPoint:
+        """Sum all lanes with log-depth pairwise dadds -> batch of 1: one
+        xyzz_dadd (one K2 launch on the card) a level, an odd lane carried
+        to the next level."""
+        n = p.X.shape[-1]
+        while n > 1:
+            half = n // 2
+            lo = type(p)(*(c[..., :half] for c in p))
+            hi = type(p)(*(c[..., half:2 * half] for c in p))
+            rest = type(p)(*(c[..., 2 * half:n] for c in p))
+            p = self.concat([self.xyzz_dadd(lo, hi), rest])
+            n = half + (n - 2 * half)
+        return p
+
     def take(self, p, idx):
         """Gather along the batch (last) axis; a PackedRows32 table gathers
         rows and returns an AffinePoint batch."""

@@ -86,6 +86,9 @@ class Fp2Ops:
     def mul3(self, a):
         return self.add(self.double(a), a)
 
+    def mul8(self, a):
+        return self.double(self.double(self.double(a)))
+
     def neg(self, a):
         return self._both(self.base.neg, a)
 

@@ -245,6 +245,9 @@ class LimbField:
     def mul3(self, a):
         return self.add(self.add(a, a), a)
 
+    def mul8(self, a):
+        return self.double(self.double(self.double(a)))
+
     # ---- Montgomery multiply -----------------------------------------------------
     def mul(self, a, b):
         """Montgomery product a*b*R^-1 mod p: K1 (fields/cuda_mont.py) or K6

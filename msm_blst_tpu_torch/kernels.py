@@ -194,8 +194,8 @@ class Kernel:
     """One kernel's C entry point: `name` as runs report it, `op` (the name
     without its curve's prefix), its C `symbol` and `argtypes` (the stream
     follows them), its `source` in csrc/, its launch count and, where the
-    wrapper gives it (K1, K6), the batch size of each launch (`batches`:
-    size -> launches)."""
+    wrapper gives it (K1, K6, K2's formulas), the batch size of each
+    launch (`batches`: size -> launches)."""
 
     def __init__(self, name: str, op: str, symbol: str, source: str, argtypes):
         self.name, self.op, self.symbol = name, op, symbol

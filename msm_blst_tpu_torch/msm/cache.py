@@ -97,8 +97,9 @@ def load_plan(curve: CurveOps, cfg: P.MsmConfig, n: int, cache_dir: str,
               device=None) -> Optional[MsmPlan]:
     """The plan cached under (curve, cfg, n) in `cache_dir` on `device`
     (default: the card), its queries on `curve` (curves.for_mul_impl gives
-    the SOS one); None when nothing is cached there. The digit table and
-    the gap constants are rebuilt from cfg (host-cheap)."""
+    the SOS one); None when nothing is cached there. The digit tables
+    (index- and value-keyed) and the gap constants are rebuilt from cfg
+    (host-cheap), as the JAX package's load_plan does."""
     from ..convert import fp2_from_jax, fp_from_jax
 
     base = os.path.join(cache_dir, cache_key(curve, cfg, n))

@@ -4,7 +4,10 @@ msm_blst_tpu/msm/engine.py: 62-145, 148-189, 197-230, 278-300, 327-368,
 
 * CHES "nh + 0.21q": `msm_ches_device` (on-device recode) and
   `msm_ches_host_recode` (host recode, the digit stream moved once to the
-  plan's device); zero doublings, d-gap integration.
+  plan's device); zero doublings, d-gap integration. On a plan with
+  `noindexhash=True`, `msm_ches_device` keys the buckets by their value
+  (JAX engine.py:338-354, reference multi_scalar.c:466-503): q/2 + 2 buckets,
+  gathered back to the bucket set's order before the integration.
 * BGMW95 q/2: `msm_bgmw_device`, with the r - a fold for tight configs and
   the consecutive-weight integration.
 * Stock Pippenger (blst's, no precomputation): `msm_stock_pippenger`, one
@@ -23,11 +26,12 @@ one of two strategies, chosen per call by the `bucket_impl` keyword:
 
 A plan's rows come in the reference's order ("i" layout) or window-major
 ("j" layout, the streamed builders of precompute.py); `ches_slots` and
-`bgmw_slots` read the plan's. The noindexhash variant is not ported.
+`bgmw_slots` read the plan's.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -155,6 +159,8 @@ class MsmPlan:
     # CHES: slot 3*(i*h+j)+m-1 (reference main_p1.cpp:155-177), PackedRows32
     table3nh: Optional[PackedRows32] = None
     packed_table: Optional[torch.Tensor] = None  # int32[q+1, 2] pairs layout
+    # int32[q+1], bucket values in place of indexes (the noindexhash keys)
+    packed_table_value: Optional[torch.Tensor] = None
     bucket_gaps: Optional[np.ndarray] = None     # host int32[B_SIZE-1]
     gap_groups: Optional[GapGroups] = None       # gap_groups(bucket_gaps)
     noindexhash: bool = False
@@ -205,22 +211,22 @@ def _ches_query(plan: MsmPlan, slots, keys, signs, impl) -> JacPoint:
         integrate_gapped(plan.curve, buckets, plan.gap_groups))
 
 
-def _ches_streams(plan: MsmPlan, scalars: torch.Tensor):
+def _ches_streams(plan: MsmPlan, scalars: torch.Tensor,
+                  value_keyed: bool = False):
     """The CHES digit stream of the device recode, flat [n*h]: (slots in
-    the plan's layout, bucket keys, signs)."""
-    if plan.noindexhash:
-        raise NotImplementedError("the noindexhash variant is not ported yet")
-    if plan.packed_table is None:
-        raise NotImplementedError("the port's CHES query needs the packed "
-                                  "digit table (build_plan attaches it)")
+    the plan's layout, bucket keys, signs). The keys are bucket indexes,
+    or with `value_keyed` bucket values (plan.packed_table_value)."""
+    table = plan.packed_table_value if value_keyed else plan.packed_table
+    if table is None:
+        raise ValueError("the port's CHES query needs the packed digit "
+                         "tables (build_plan attaches them)")
     cfg = plan.cfg
     n = scalars.shape[1]
     h = cfg.h
     dev = scalars.device
     i_idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
     j_idx = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
-    keys, m1, s = recode.ches_recode_device_packed(
-        scalars, cfg.c, h, plan.packed_table)
+    keys, m1, s = recode.ches_recode_device_packed(scalars, cfg.c, h, table)
     slots = ches_slots(i_idx, j_idx, m1, h, n, plan.layout)
     return slots.reshape(-1), keys.reshape(-1), s.reshape(-1)
 
@@ -248,14 +254,30 @@ def _bgmw_streams(plan: MsmPlan, scalars: torch.Tensor):
     return table, slots.reshape(-1), absd.reshape(-1), sign.reshape(-1)
 
 
+@functools.lru_cache(maxsize=4)
+def _bucket_set_on(cfg: P.MsmConfig, device: torch.device) -> torch.Tensor:
+    """The CHES bucket values in ascending order, int64 on `device`, copied
+    there once for the last few (config, device) pairs."""
+    return torch.as_tensor(cfg.bucket_set().astype(np.int64), device=device)
+
+
 def msm_ches_device(plan: MsmPlan, scalars: torch.Tensor,
                     bucket_impl: str = "prefix") -> JacPoint:
     """CHES 'nh + 0.21q' MSM with on-device integral scalar conversion.
 
     scalars: int32[8, n] (recode.to_device) on the plan's device. Returns a
     Jacobian batch of 1. Query path: zero doublings (reference
-    main_p1.cpp:192-246 + multi_scalar.c:421-463)."""
-    return _ches_query(plan, *_ches_streams(plan, scalars), bucket_impl)
+    main_p1.cpp:192-246 + multi_scalar.c:421-463). With plan.noindexhash
+    the buckets are keyed by value, q/2 + 2 of them, and the occupied ones
+    are gathered back to the bucket set's order (multi_scalar.c:466-503)."""
+    if not plan.noindexhash:
+        return _ches_query(plan, *_ches_streams(plan, scalars), bucket_impl)
+    curve, cfg = plan.curve, plan.cfg
+    slots, keys, signs = _ches_streams(plan, scalars, value_keyed=True)
+    buckets_val = _bucket_sums_stream(curve, plan.table3nh, slots, keys, signs,
+                                      (cfg.q >> 1) + 2, bucket_impl)
+    buckets = curve.take(buckets_val, _bucket_set_on(cfg, scalars.device))
+    return curve.xyzz_to_jac(integrate_gapped(curve, buckets, plan.gap_groups))
 
 
 def msm_ches_host_recode(plan: MsmPlan, scalars_np: np.ndarray,

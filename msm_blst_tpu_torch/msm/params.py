@@ -106,6 +106,17 @@ def packed_digit_table_pairs(q: int, ah: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def packed_digit_table_value(q: int, ah: int) -> np.ndarray:
+    """int32[q+1]: packed_digit_table with the bucket VALUE b in bits
+    0..23 in place of its index (the noindexhash variant, reference
+    multi_scalar.c:466-503): the bucket array is indexed by value (q/2 + 2
+    entries) and the value->index map disappears."""
+    m_t, b_t, a_t, _ = digit_conversion_table(q, ah)
+    m1 = np.where(m_t > 0, m_t - 1, 0)
+    return (b_t | (m1 << 24) | (a_t << 26)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
 def bucket_value_to_index(q: int, ah: int) -> np.ndarray:
     """Inverse map over [0, q/2]: bucket value -> index in the sorted set."""
     bs = construct_bucket_set(q, ah)

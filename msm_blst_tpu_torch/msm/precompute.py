@@ -270,9 +270,12 @@ def build_plan(curve: CurveOps, points: AffinePoint, cfg: P.MsmConfig,
 
 
 def _attach_ches_params(plan: MsmPlan, cfg: P.MsmConfig, device) -> None:
-    """Config-derived digit table and bucket-gap constants (host-cheap)."""
+    """Config-derived digit tables (index-keyed pairs and value-keyed) and
+    bucket-gap constants (host-cheap)."""
     plan.packed_table = torch.as_tensor(
         P.packed_digit_table_pairs(cfg.q, cfg.ah), device=device)
+    plan.packed_table_value = torch.as_tensor(
+        P.packed_digit_table_value(cfg.q, cfg.ah), device=device)
     bs = cfg.bucket_set()
     plan.bucket_gaps = np.diff(bs).astype(np.int32)
     if plan.bucket_gaps.max() > cfg.d_max:

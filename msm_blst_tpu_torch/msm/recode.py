@@ -191,16 +191,23 @@ def qary_digits_device(scalars: torch.Tensor, c: int, h: int) -> torch.Tensor:
 
 def ches_recode_device_packed(scalars: torch.Tensor, c: int, h: int,
                               packed_table: torch.Tensor):
-    """Device MB-radix-q recoding off the pairs table
-    (params.packed_digit_table_pairs, int32[q+1, 2]): both candidate entries
-    (digit and digit+1) in one row gather, then the +1 carry chain as h
-    integer selects. Digits lie in [0, q-1], so every row index is in range.
+    """Device MB-radix-q recoding off a packed digit table: the pairs
+    layout (params.packed_digit_table_pairs, int32[q+1, 2]), both candidate
+    entries (digit and digit+1) in one row gather; or a 1-D table of q+1
+    entries (params.packed_digit_table_value, the noindexhash keys), both
+    candidates in one gather of [2, h, n] indices. Then the +1 carry chain
+    as h integer selects. Digits lie in [0, q-1] and digit+1 <= q, so
+    every index is in range.
 
     Returns (key int32[h, n], m1 int32[h, n] in {0,1,2}, sign bool[h, n])."""
     digits = qary_digits_device(reduce_mod_r_device(scalars), c, h)
     n = digits.shape[1]
-    spec = packed_table[digits.to(torch.int64)]  # [h, n, 2]
-    p0, p1 = spec[..., 0], spec[..., 1]
+    idx = digits.to(torch.int64)
+    if packed_table.ndim == 2:
+        spec = packed_table[idx]  # [h, n, 2]
+        p0, p1 = spec[..., 0], spec[..., 1]
+    else:
+        p0, p1 = packed_table[torch.stack([idx, idx + 1])]
     a0 = (p0 >> 26) & 1
     a1 = (p1 >> 26) & 1
     carry = torch.zeros(n, dtype=torch.int32, device=digits.device)

@@ -308,8 +308,12 @@ def _emit(curve, off: XyzzPoint, elems, N: int) -> XyzzPoint:
 
 def _tile_scan_plain(curve, pts: XyzzPoint, k: int) -> XyzzPoint:
     """The kernel's one-block scan of N <= FOLD_THREADS * k elements: thread
-    sums, block scan, then each thread's sums from thread j - 1's prefix."""
-    elems = _thread_elems(pts, k, 1)
+    sums, block scan, then each thread's sums from thread j - 1's prefix.
+    Only the threads that hold an element are computed: a thread's sums
+    read no thread after it, so the others cannot change them."""
+    used = -(-pts.X.shape[-1] // k)
+    elems = [XyzzPoint(*(c[..., :used] for c in e))
+             for e in _thread_elems(pts, k, 1)]
     incl = _block_scan(curve, _thread_sums(curve, elems))
     return _emit(curve, _shifted(incl), elems, pts.X.shape[-1])
 

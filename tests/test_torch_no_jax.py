@@ -38,7 +38,7 @@ def test_port_modules_never_import_jax():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 30  # every module of the package
+    assert int(r.stdout.strip()) >= 35  # every module of the package
 
 
 def _refuses_without_a_card(curve: str):
@@ -61,7 +61,8 @@ def test_g2_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("name", ["microbench", "mxu_experiment",
-                                  "gather_bench"])
+                                  "gather_bench", "run_msm", "profile_stages",
+                                  "bign_profile"])
 def test_drivers_default_to_the_card(name):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     r = subprocess.run([sys.executable, "-m",
@@ -80,8 +81,20 @@ def test_new_modules_are_walked():
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                      pkg.__name__ + ".")}
     for mod in ("fields.sos", "utils.profiling", "drivers.microbench",
-                "drivers.mxu_experiment", "drivers.gather_bench", "msm.cache"):
+                "drivers.mxu_experiment", "drivers.gather_bench", "msm.cache",
+                "curves.mult", "drivers.run_msm", "drivers.profile_stages",
+                "drivers.bign_profile", "entry"):
         assert f"msm_blst_tpu_torch.{mod}" in names
+
+
+def test_entry_defaults_to_the_card():
+    code = ("from msm_blst_tpu_torch.entry import entry\n"
+            "entry()\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "RuntimeError" in r.stderr and "no CUDA device" in r.stderr, r.stderr
 
 
 def test_chip_smoke_fails_without_a_card():
