@@ -82,7 +82,20 @@ Phases, each reported on its own lines:
      64, the scalars 0, 1 and r - 1 and the point at infinity among them
      (G1: a point outside the subgroup too), against the oracle, each
      path with its K1 and K2 launches by batch size;
-  9. bign: streamed plans (the window-major "j" layout) at n = 2^21
+  9. protocol: batched hash to curve (protocol/device_map.py): the edge
+     lanes first (map_to_g1_device, cleared and not, on u = 0, 1, p - 1
+     and u whose g(x1) is and is not a square; hash_to_g1_device's body on
+     u pairs whose maps double, cancel, and u0 = u1 = 0 in K2's add; the
+     Fp2 square root on -1, -25, 0 and a non-residue), then
+     hash_to_g1_device over 4,096 seeded messages (8,192 SSWU lanes) and
+     map_to_g2_device over 2,048 seeded u values (u = 0, c0 = 0 and u in
+     Fp first), each one warm-up and two timed batches with their wall
+     and device ms and us a message, every lane against the port's host
+     oracle (hash_to_g1, map_to_curve_g2) and every G1 point in the group
+     (in_group_device); each path (G1_hash_to_g1, G2_map_to_g2) launching
+     K1 (and on G1 K2's doubling and mixed add) and no other kernel, with
+     K1's launches by batch size;
+ 10. bign: streamed plans (the window-major "j" layout) at n = 2^21
      (params.CONFIGS[21], the BGMW table aliased into the 3nh one) on G1
      and G2, with their build times and peak device memory; on G1
      msm_ches_device and msm_bign (CHES and BGMW95) at the chunk count the
@@ -99,7 +112,7 @@ Phases, each reported on its own lines:
      batch and at a window's 3n lanes, each against its plain version;
      the 2^16 plan through the cache (save_plan, load_plan) and two
      queries from the loaded plan;
- 10. a JSON line of per-kernel results (the new shapes under
+ 11. a JSON line of per-kernel results (the new shapes under
      "at_<shape>"), then the final status line.
 
 It catches no exception: any failure exits non-zero before the last line.
@@ -202,14 +215,19 @@ def bound(n_bytes: float, n_mont: float = 0, imad: float = 0,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(card_line())
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__},"
           f" CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     print(f"top SM clock: {top_sm_mhz():g} MHz")
@@ -1637,6 +1655,195 @@ def phase_harness(dev, g1, g2):
     return paths
 
 
+# The protocol phase: batched hash to curve (protocol/device_map.py)
+H2C_G1_MSGS = 4096  # hash_to_g1_device's messages: 8,192 SSWU lanes
+H2C_G2_US = 2048  # map_to_g2_device's u values: 1,024 messages' field half
+H2C_SEED = 16  # the seed of the messages and u values
+H2C_TIMED = 2  # timed batches of each path, after one warm-up
+# the K2 formulas the G1 path launches: the u0 + u1 add, then point_mult's
+# table, doublings and adds; the G2 path launches none (K1 alone)
+H2C_OPS = {"G1": ["point_double", "point_dadd_affine"], "G2": []}
+
+
+def h2c_messages(n: int, seed: int) -> list:
+    """n distinct seeded messages of 0 to 63 bytes, the batch index in the
+    first four bytes."""
+    rng = np.random.default_rng(seed)
+    return [i.to_bytes(4, "big") + rng.bytes(int(k))
+            for i, k in enumerate(rng.integers(0, 60, n))]
+
+
+def h2c_g2_us(n: int, seed: int) -> list:
+    """n seeded Fp2 u values, the edge lanes first: u = 0 (tv2 = 0, the
+    exceptional x1), c0 = 0 (sgn0's second branch) and u in Fp."""
+    from msm_blst_tpu_torch.constants import P
+
+    rng = np.random.default_rng(seed)
+    rand = [int.from_bytes(rng.bytes(64), "little") % P for _ in range(2 * n)]
+    return ([(0, 0), (0, 5), (7, 0)] + list(zip(rand[0::2], rand[1::2])))[:n]
+
+
+def timed_batch(fn):
+    """(fn(), wall ms, device ms): the host's clock and the card's CUDA
+    events around one call, the card idle before it."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t), start.elapsed_time(end)
+
+
+def h2c_edges(dev):
+    """The edge lanes on the card against the host oracle: map_to_g1_device
+    (cleared and not) on u = 0, 1, p - 1 and u whose g(x1) is and is not a
+    square; hash_to_g1_device's body on u pairs whose maps are equal (K2's
+    add doubles), opposite (it cancels) and u0 = u1 = 0; the Fp2 square
+    root on -1 and -25 (alpha == -1), 0 and a non-residue."""
+    from msm_blst_tpu_torch.constants import P
+    from msm_blst_tpu_torch.curves import G1
+    from msm_blst_tpu_torch.fields import FP, FP2
+    from msm_blst_tpu_torch.protocol import device_map as dm
+    from msm_blst_tpu_torch.protocol import hash_to_curve as h2c
+    from msm_blst_tpu_torch.refimpl import G1_REF, Fp, Fp2
+
+    a, b, z = h2c._G1_A, h2c._G1_B, h2c._G1_Z
+    us, kinds, u = [0, 1, P - 1], {}, 1
+    while len(kinds) < 2:  # the first u from 2 on of each kind
+        u += 1
+        tv1 = z * Fp(u).sqr()
+        x1 = (-b) * a.inv() * ((tv1.sqr() + tv1).inv() + Fp.one())
+        sq = h2c.is_square_fp((x1.sqr() + a) * x1 + b)
+        if sq not in kinds:
+            kinds[sq] = u
+            us.append(u)
+    on_e1 = [h2c.map_to_curve_g1(Fp(x)) for x in us]
+    want = {False: [(p[0].v, p[1].v) for p in on_e1],
+            True: [tuple(c.v for c in h2c.clear_cofactor_g1(p))
+                   for p in on_e1]}
+    for clear in (False, True):
+        got = G1.affine_to_ints(dm.map_to_g1_device(
+            FP.from_ints(us, device=dev), clear_cofactor=clear, device=dev))
+        if got != want[clear]:
+            raise AssertionError(f"protocol edges: map_to_g1_device(clear="
+                                 f"{clear}) differs from the oracle")
+    pairs = [(us[3], us[3]), (us[4], P - us[4]), (0, 0)]
+    got = G1.affine_to_ints(dm._run_hash_to_g1(FP.from_ints(
+        [x for pair in pairs for x in pair], device=dev)))
+    for (u0, u1), pt in zip(pairs, got):
+        q = G1_REF.jac_add(*(G1_REF.from_affine(h2c.map_to_curve_g1(Fp(x)))
+                             for x in (u0, u1)))
+        w = h2c.clear_cofactor_g1(G1_REF.to_affine(q))
+        if pt != (w[0].v, w[1].v):
+            raise AssertionError(f"protocol edges: the pair {(u0, u1)} "
+                                 "differs from the oracle")
+    if got[1] != (0, 0):
+        raise AssertionError("protocol edges: the opposite pair did not cancel")
+    vals = [(P - 1, 0), (P - 25, 0), (0, 0), (3, 5)]
+    root, ok = dm._sqrt_fp2_device(FP2.from_int_pairs(vals, device=dev))
+    roots = FP2.to_int_pairs(root)
+    for v, r, good in zip(vals, roots, ok.tolist()):
+        host = h2c.sqrt_fp2(Fp2(*v))
+        if good != (host is not None) or (good and Fp2(*r).sqr() != Fp2(*v)):
+            raise AssertionError(f"protocol edges: the Fp2 root of {v}")
+    print(f"protocol edges: map_to_g1_device on u = 0, 1, p - 1, "
+          f"{kinds[True]} (g(x1) a square) and {kinds[False]} (not), the "
+          f"doubling, cancelling and u = 0 "
+          f"pairs, the Fp2 root of -1, -25, 0 and a non-residue "
+          f"({ok.tolist()}) equal the host oracle")
+
+
+def h2c_path(label, run, n_in, unit, check_lanes):
+    """One warm-up and H2C_TIMED timed calls of `run`, every output held
+    to the oracle by `check_lanes`; prints each batch's wall and device ms
+    and the us a `unit`; returns the last output."""
+    out, _, _ = timed_batch(run)
+    check_lanes(out, "warm-up")
+    for i in range(H2C_TIMED):
+        out, wall, dev_ms = timed_batch(run)
+        check_lanes(out, f"batch {i}")
+        print(f"{label}: batch {i}: {wall:.3f} ms wall, {dev_ms:.3f} ms "
+              f"device_ms, {1e3 * wall / n_in:.3f} us a {unit}")
+    return out
+
+
+def phase_protocol(dev, g1, g2):
+    """hash_to_g1_device over H2C_G1_MSGS messages and map_to_g2_device
+    over H2C_G2_US u values (the edge lanes first), each one warm-up and
+    H2C_TIMED timed batches, every lane against the port's host oracle
+    (hash_to_g1, map_to_curve_g2), every G1 lane in the group by
+    in_group_device; each path a path of its own, launching K1 (and on G1
+    K2's doubling and mixed add) and nothing else, with K1's launches by
+    batch size. The edge lanes of G1 run first (h2c_edges)."""
+    from msm_blst_tpu_torch.curves import in_group_device
+    from msm_blst_tpu_torch.fields import FP2
+    from msm_blst_tpu_torch.protocol import device_map as dm
+    from msm_blst_tpu_torch.protocol import hash_to_curve as h2c
+    from msm_blst_tpu_torch.refimpl import Fp2
+
+    t0 = time.perf_counter()
+    print(f"protocol phase on {card_line()}")
+    h2c_edges(dev)
+    paths = {}
+    msgs = h2c_messages(H2C_G1_MSGS, H2C_SEED)
+    us = h2c_g2_us(H2C_G2_US, H2C_SEED)
+    t = time.perf_counter()
+    want_g1 = [h2c.hash_to_g1(m) for m in msgs]
+    t_g1 = time.perf_counter() - t
+    t = time.perf_counter()
+    want_g2 = []
+    for u in us:
+        x, y = h2c.map_to_curve_g2(Fp2(*u))
+        want_g2.append(((x.c0.v, x.c1.v), (y.c0.v, y.c1.v)))
+    t_g2 = time.perf_counter() - t
+    print(f"protocol host oracle: hash_to_g1 of {len(msgs)} messages "
+          f"{t_g1:.3f} s, map_to_curve_g2 of {len(us)} u values {t_g2:.3f} s")
+    for case, n_in, unit, run, want in (
+            (g1, len(msgs), "message",
+             lambda: dm.hash_to_g1_device(msgs, device=dev), want_g1),
+            (g2, len(us), "u value",
+             lambda: dm.map_to_g2_device(FP2.from_int_pairs(us, device=dev),
+                                         device=dev), want_g2)):
+        curve = case.curve
+        label = ("G1 hash_to_g1_device" if curve.name == "G1"
+                 else "G2 map_to_g2_device")
+
+        def check_lanes(out, which, curve=curve, want=want, label=label):
+            got = curve.affine_to_ints(out)
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            if bad or len(got) != len(want):
+                raise AssertionError(f"{label} {which}: lanes {bad[:8]} "
+                                     "differ from the host oracle")
+
+        reset_counts()
+        out = h2c_path(label, run, n_in, unit, check_lanes)
+        print(f"{label}: {1 + H2C_TIMED} batches of {n_in} lanes equal to "
+              "the host oracle")
+        ops = H2C_OPS[curve.name]
+        path = ("G1_hash_to_g1" if curve.name == "G1" else "G2_map_to_g2")
+        launches = read_counts(label, *path_kernels(
+            case, ops, unused_ops=[op for op in case.kernels
+                                   if op not in ops]))
+        for name in ["mont_mul"] + [case.name(op) for op in ops]:
+            print(f"{label}: {name} launches a batch: "
+                  f"{launches[name] / (1 + H2C_TIMED):g}")
+        paths[path] = launches
+        if curve.name == "G1":
+            t = time.perf_counter()
+            mask = in_group_device(curve, out).tolist()
+            if not all(mask):
+                raise AssertionError(f"{label}: lanes outside G1: "
+                                     f"{[i for i, m in enumerate(mask) if not m][:8]}")
+            print(f"{label}: all {len(mask)} points in G1 (in_group_device, "
+                  f"{time.perf_counter() - t:.3f} s)")
+        torch.cuda.empty_cache()
+    print(f"protocol phase: {time.perf_counter() - t0:.3f} s")
+    return paths
+
+
 # The big-n phase: CONFIGS[21] (c = 22, h = 12, |B| = 874,437; BGMW aliased
 # into the 3nh table) on G1 and G2, CONFIGS[20]'s BGMW table (c' = 20,
 # h' = 13, not aliased) on G1, and the plan cache at n = 2^16
@@ -2052,7 +2259,8 @@ def main():
         "G2_ches_device": phase_main_path(dev, g2),
         "G2_ches_device_sos": phase_main_path(dev, g2, "sos", G2_SOS_SEEDS),
         **phase_algorithms(dev, g2, G2_ALGO_SEEDS)})
-    for more in (phase_harness(dev, g1, g2), phase_bign(dev, g1, g2)):
+    for more in (phase_harness(dev, g1, g2), phase_protocol(dev, g1, g2),
+                 phase_bign(dev, g1, g2)):
         if set(more) & set(paths):
             raise AssertionError(f"paths named twice: {set(more) & set(paths)}")
         paths.update(more)

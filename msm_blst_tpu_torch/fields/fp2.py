@@ -137,6 +137,17 @@ class Fp2Ops:
         inversion of the norms."""
         return self._over_norm(a, self.base.batch_inv)
 
+    def pow_int(self, a, e: int):
+        """a^e for a static exponent (Montgomery domain in and out): a
+        square for every bit of e and a product for every set bit, each one
+        base-field multiply call."""
+        acc = self.one_mont(a.shape[2:], a.device)
+        for bit in bin(e)[2:]:
+            acc = self.sqr(acc)
+            if bit == "1":
+                acc = self.mul(acc, a)
+        return acc
+
     # ---- host io ---------------------------------------------------------------
     def from_int_pairs(self, pairs, mont: bool = True, device=None):
         """[(c0, c1) ints] -> batch (Montgomery form by default) on `device`

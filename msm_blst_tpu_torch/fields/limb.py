@@ -154,6 +154,8 @@ class LimbField:
             "NOT_P": _limb_array(self.R - modulus, L),
             "NPRIME": _limb_array((-pow(modulus, -1, self.R)) % self.R, L),
             "ONE_MONT": int_to_words(self.R % modulus, self.n_words),
+            "ONE": int_to_words(1, self.n_words),  # from_mont's operand
+            "RR": int_to_words(self.R * self.R % modulus, self.n_words),
         }
         self._dev: dict = {}
 
@@ -182,16 +184,23 @@ class LimbField:
         return torch.zeros((self.n_words,) + tuple(batch_shape),
                            dtype=torch.int32, device=device)
 
+    def word_const(self, name: str, device, batch_ndim: int) -> torch.Tensor:
+        """int32 word constant shaped (W, 1, ..., 1) for batch_ndim dims."""
+        return self._const(name, device).reshape(
+            (self.n_words,) + (1,) * batch_ndim)
+
     def one_mont(self, batch_shape=(), device=None) -> torch.Tensor:
         """Montgomery-domain 1 (= R mod p), broadcast over batch_shape."""
         shape = tuple(batch_shape)
-        return self._const("ONE_MONT", device).reshape(
-            (self.n_words,) + (1,) * len(shape)).expand(
+        return self.word_const("ONE_MONT", device, len(shape)).expand(
             (self.n_words,) + shape).contiguous()
 
     # ---- predicates ----------------------------------------------------------
     def is_zero(self, a):
         return (a == 0).all(dim=0)
+
+    def eq(self, a, b):
+        return (a == b).all(dim=0)
 
     def select(self, mask, a, b):
         """mask ? a : b, mask shaped like the batch."""
@@ -281,6 +290,15 @@ class LimbField:
         b = torch.cat([p[1] for p in pairs], dim=-1)
         return list(torch.chunk(self.mul(a, b), len(pairs), dim=-1))
 
+    # ---- Montgomery domain conversions ------------------------------------------
+    def to_mont(self, a):
+        """a*R mod p: one product by R^2 (one multiply launch)."""
+        return self.mul(a, self.word_const("RR", a.device, a.ndim - 1))
+
+    def from_mont(self, a):
+        """a*R^-1 mod p: one product by 1 (one multiply launch)."""
+        return self.mul(a, self.word_const("ONE", a.device, a.ndim - 1))
+
     # ---- exponentiation / inversion ----------------------------------------------
     def pow_int(self, a, e: int):
         """a^e for a static exponent (Montgomery domain in and out)."""
@@ -294,6 +312,12 @@ class LimbField:
     def inv(self, a):
         """a^-1 via Fermat; inv(0) = 0."""
         return self.pow_int(a, self.modulus - 2)
+
+    def is_square(self, a):
+        """bool batch: True where a is a square mod p, zero included (Euler's
+        criterion a^((p-1)/2) == 1)."""
+        e = self.pow_int(a, (self.modulus - 1) >> 1)
+        return self.eq(e, self.one_mont(a.shape[1:], a.device)) | self.is_zero(a)
 
     def batch_inv(self, a):
         """Elementwise inverse over the last axis via Montgomery's trick: two

@@ -11,7 +11,7 @@ it equal to msm_blst_tpu.refimpl.G1_REF and G2_REF
 
 from __future__ import annotations
 
-from .constants import B_G1, B_G2, G1_X, G1_Y, G2_X, G2_Y, P, R_ORDER
+from ..constants import B_G1, B_G2, G1_X, G1_Y, G2_X, G2_Y, P, R_ORDER
 
 
 class _Fp:

@@ -709,3 +709,43 @@ def test_msm_bign_on_the_card(dev, name):
     assert loaded.layout == "j" and loaded.bgmw_stride3
     assert torch.equal(loaded.table3nh.XY, plan.table3nh.XY)
     assert affine(msm_bign(loaded, sc, "bgmw")) == want
+
+
+def test_hash_to_g1_device_on_the_card(dev):
+    """hash_to_g1_device through K1 and K2 equals the port's host oracle,
+    and the pairs whose maps double and cancel in K2's add too."""
+    from msm_blst_tpu_torch.curves import G1
+    from msm_blst_tpu_torch.fields import FP
+    from msm_blst_tpu_torch.protocol import device_map as dm
+    from msm_blst_tpu_torch.protocol import hash_to_curve as h2c
+    from msm_blst_tpu_torch.refimpl import G1_REF as ref
+    from msm_blst_tpu_torch.refimpl import Fp
+
+    msgs = [b"", b"abc", bytes(range(40))]
+    got = G1.affine_to_ints(dm.hash_to_g1_device(msgs, device=dev))
+    assert got == [h2c.hash_to_g1(m) for m in msgs]
+    u = 0x1234567890ABCDEF
+    pairs = [(u, u), (u, P - u), (0, 0)]
+    got = G1.affine_to_ints(dm._run_hash_to_g1(FP.from_ints(
+        [x for pair in pairs for x in pair], device=dev)))
+    for (u0, u1), pt in zip(pairs, got):
+        q = ref.jac_add(*(ref.from_affine(h2c.map_to_curve_g1(Fp(x)))
+                          for x in (u0, u1)))
+        w = h2c.clear_cofactor_g1(ref.to_affine(q))
+        assert pt == (w[0].v, w[1].v)
+    assert got[1] == (0, 0)
+
+
+def test_map_to_g2_device_on_the_card(dev):
+    from msm_blst_tpu_torch.curves import G2
+    from msm_blst_tpu_torch.fields import FP2
+    from msm_blst_tpu_torch.protocol import device_map as dm
+    from msm_blst_tpu_torch.protocol import hash_to_curve as h2c
+    from msm_blst_tpu_torch.refimpl import Fp2
+
+    us = [(0, 0), (0, 5), (7, 0), (123456789, 987654321)]
+    got = G2.affine_to_ints(dm.map_to_g2_device(
+        FP2.from_int_pairs(us, device=dev), device=dev))
+    for u, pt in zip(us, got):
+        x, y = h2c.map_to_curve_g2(Fp2(*u))
+        assert pt == ((x.c0.v, x.c1.v), (y.c0.v, y.c1.v))

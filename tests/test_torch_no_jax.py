@@ -38,7 +38,7 @@ def test_port_modules_never_import_jax():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 35  # every module of the package
+    assert int(r.stdout.strip()) >= 49  # every module of the package
 
 
 def _refuses_without_a_card(curve: str):
@@ -72,6 +72,28 @@ def test_drivers_default_to_the_card(name):
     assert "RuntimeError" in r.stderr and "no CUDA device" in r.stderr, r.stderr
 
 
+_PROTOCOL_ENTRIES = {
+    "hash_to_g1_device": "hash_to_g1_device([b'abc'])",
+    "map_to_g1_device": "map_to_g1_device(FP.from_ints([5], device='cpu'))",
+    "map_to_g2_device":
+        "map_to_g2_device(FP2.from_int_pairs([(1, 2)], device='cpu'))",
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PROTOCOL_ENTRIES))
+def test_device_maps_default_to_the_card(name):
+    """The batched hash-to-curve maps run on the card unless given
+    device="cpu", even on CPU inputs."""
+    code = ("from msm_blst_tpu_torch.fields import FP, FP2\n"
+            f"from msm_blst_tpu_torch.protocol.device_map import {name}\n"
+            f"{_PROTOCOL_ENTRIES[name]}\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "RuntimeError" in r.stderr and "no CUDA device" in r.stderr, r.stderr
+
+
 def test_new_modules_are_walked():
     """The modules of this slice are among those the import check walks."""
     import pkgutil
@@ -83,7 +105,12 @@ def test_new_modules_are_walked():
     for mod in ("fields.sos", "utils.profiling", "drivers.microbench",
                 "drivers.mxu_experiment", "drivers.gather_bench", "msm.cache",
                 "curves.mult", "drivers.run_msm", "drivers.profile_stages",
-                "drivers.bign_profile", "entry"):
+                "drivers.bign_profile", "entry", "refimpl.ints",
+                "refimpl.field", "refimpl.curve", "protocol.iso_constants",
+                "protocol.tower", "protocol.hash_to_curve",
+                "protocol.device_map", "protocol.pairing", "protocol.glv",
+                "protocol.keygen", "protocol.signatures", "curves.serialize",
+                "utils.exports"):
         assert f"msm_blst_tpu_torch.{mod}" in names
 
 
