@@ -6,8 +6,10 @@ Phases, each reported on its own lines:
   1. device: the card's name and power limit (nvidia-smi), its top SM
      clock, torch, CUDA and nvcc versions; stops unless torch sees a CUDA
      device;
-  2. build: compiles msm_blst_tpu_torch/csrc/*.cu (one nvcc per source, in
-     parallel) and reports the time, each nvcc's, and each kernel's
+  2. build: compiles the native host library (native.py: g++ on
+     host/recode.cpp), then msm_blst_tpu_torch/csrc/*.cu (one nvcc per
+     source, in parallel) and reports the times, each nvcc's, and each
+     kernel's
      registers and spills; K3's, K4's and K5's kernels must keep
      FOLD_WAVE // 132 blocks resident an SM
      (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the wave the host
@@ -95,7 +97,22 @@ Phases, each reported on its own lines:
      (in_group_device); each path (G1_hash_to_g1, G2_map_to_g2) launching
      K1 (and on G1 K2's doubling and mixed add) and no other kernel, with
      K1's launches by batch size;
- 10. bign: streamed plans (the window-major "j" layout) at n = 2^21
+ 10. facade: the blst-named API (api.py) at n = 2^16 (CONFIGS[16]) on
+     the reference's points: on G1 and G2 the CHES first call (split into
+     digest, point conversion, plan build and query), three repeat calls
+     against as many engine.msm_ches_device queries on the memo's plan
+     (the same kernels and counts; both timed, with the host's share:
+     digest, scalar conversion, result to ints), the BGMW95 call that
+     upgrades the plan in place (the 3nh table's object kept) and a CHES
+     call after it; on G1 the stale-plan case (a point the JAX digest's
+     probes skip replaced in the same list object, the next call against
+     the new oracle), the native scalar conversion beside its numpy twin
+     (the same words), p1s_add and p1s_to_affine with infinity lanes and
+     wbits at w = 5 over 2^12 points; stock and the tile at window 13 on
+     both curves; one G1 CHES call at n = 100,000 (the nearest shipped
+     radix); every result against the oracle, each call group a path of
+     its own; the plan memo cleared after;
+ 11. bign: streamed plans (the window-major "j" layout) at n = 2^21
      (params.CONFIGS[21], the BGMW table aliased into the 3nh one) on G1
      and G2, with their build times and peak device memory; on G1
      msm_ches_device and msm_bign (CHES and BGMW95) at the chunk count the
@@ -112,7 +129,7 @@ Phases, each reported on its own lines:
      batch and at a window's 3n lanes, each against its plain version;
      the 2^16 plan through the cache (save_plan, load_plan) and two
      queries from the loaded plan;
- 11. a JSON line of per-kernel results (the new shapes under
+ 12. a JSON line of per-kernel results (the new shapes under
      "at_<shape>"), then the final status line.
 
 It catches no exception: any failure exits non-zero before the last line.
@@ -239,8 +256,12 @@ def phase_device():
 
 
 def phase_build():
-    from msm_blst_tpu_torch import kernels
+    from msm_blst_tpu_torch import kernels, native
 
+    t0 = time.perf_counter()
+    native.load()
+    print(f"build: native host library {time.perf_counter() - t0:.3f} s "
+          f"({native.library_path().name})")
     t0 = time.perf_counter()
     kernels.load()
     print(f"build: {time.perf_counter() - t0:.3f} s "
@@ -1844,6 +1865,423 @@ def phase_protocol(dev, g1, g2):
     return paths
 
 
+# The facade phase: the blst-named API (msm_blst_tpu_torch/api.py) on the
+# card at n = 2^16 (CONFIGS[16]), G1 and G2, on the reference's points
+FACADE_SEEDS = (2, 3, 4)  # the CHES repeat calls' scalar sets
+FACADE_BGMW_SEED = 5  # the BGMW call's, and the CHES call after it
+FACADE_OFF_N = 100_000  # the off-table n of one G1 CHES call
+FACADE_WBITS, FACADE_WBITS_LOG = 5, 12  # wbits' window and its 2^12 points
+FACADE_TILE_WINDOW = 13
+FACADE_INF_LANES = (5, 777, 40_000)  # the infinity lanes of the batch ops
+# A position the JAX facade's 16 digest probes (0, n/16, 2n/16, ...) never
+# read: its point is replaced in place, and the next CHES call must see it
+FACADE_C2_POS = 1
+# the facade's helpers each call's time is split over (the rest: the query)
+FACADE_PARTS = ("_ches_plan", "_points_digest", "_device_affine",
+                "build_plan", "_scalars_device", "_jac_ints")
+
+
+class FacadeTimer:
+    """Wraps FACADE_PARTS of the facade module with timers that finish the
+    card's queued work on entry and on exit, so each part's seconds are its
+    own (`parts`, summed since `clear`); `call(fn)` times one whole call."""
+
+    def __init__(self):
+        from msm_blst_tpu_torch import api
+
+        self.api, self.parts, self.saved = api, {}, {}
+        for name in FACADE_PARTS:
+            fn = getattr(api, name)
+            self.saved[name] = fn
+            setattr(api, name, self._timed(name, fn))
+
+    def _timed(self, name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.parts[name] = (self.parts.get(name, 0.0)
+                                + time.perf_counter() - t)
+            return out
+        return wrapper
+
+    def clear(self):
+        self.parts = {}
+
+    def call(self, fn):
+        """(fn(), its seconds, its parts' seconds), the card idle before."""
+        self.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, dict(self.parts)
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.api, name, fn)
+
+
+def split_line(total, parts) -> str:
+    """A call's seconds and its parts' (the plan memo and upgrade: the
+    whole _ches_plan less the digest, the conversion and build_plan inside
+    it; the query: the rest)."""
+    get = parts.get
+    plan = (get("_ches_plan", 0.0) - get("_points_digest", 0.0)
+            - get("_device_affine", 0.0) - get("build_plan", 0.0))
+    named = {"digest": get("_points_digest", 0.0),
+             "point conversion": get("_device_affine", 0.0),
+             "plan build": get("build_plan", 0.0),
+             "plan memo and upgrade": max(plan, 0.0),
+             "scalars": get("_scalars_device", 0.0),
+             "result to ints": get("_jac_ints", 0.0)}
+    rest = total - sum(named.values())
+    return (f"{1e3 * total:.3f} ms: " + ", ".join(
+        f"{k} {1e3 * v:.3f}" for k, v in named.items() if v)
+        + f", query {1e3 * rest:.3f} ms")
+
+
+class FacadeCase:
+    """One curve's facade inputs at n points: the reference's fixed points
+    P_i = 2^(i+1) G as host int tuples, and by seed the scalars as host
+    ints and the oracle's affine point; the facade's names by prefix."""
+
+    def __init__(self, case, n: int, seeds, dev):
+        from msm_blst_tpu_torch import api, refimpl
+        from msm_blst_tpu_torch.constants import R_ORDER
+        from msm_blst_tpu_torch.msm import fixed_point_list, recode
+
+        curve = case.curve
+        self.case, self.n, self.api = case, n, api
+        self.p = "p1" if curve.name == "G1" else "p2"
+        self.ref = refimpl.CURVES[curve.name]
+        t0 = time.perf_counter()
+        self.points = curve.affine_to_ints(fixed_point_list(curve, n,
+                                                             device=dev))
+        host = {s: bign_scalars(n, s) for s in seeds}
+        self.ints = {s: recode.scalars_to_ints(a) for s, a in host.items()}
+        self.totals = {s: weighted_total(a) for s, a in host.items()}
+        self.want = {s: self.ref.mult(t) for s, t in self.totals.items()}
+        self.weights = None  # set when a point is replaced (replace)
+        self.r = R_ORDER
+        print(f"{curve.name} facade: {n} fixed points and {len(seeds)} "
+              f"scalar sets on the host, {time.perf_counter() - t0:.3f} s")
+
+    def fn(self, name):
+        return getattr(self.api, f"{self.p}{name}")
+
+    def replace(self, pos: int, k: int):
+        """Point `pos` becomes k * G in place (the same list object); the
+        oracle follows."""
+        e = pow(2, pos + 1, self.r)
+        self.points[pos] = self.ref.mult(k)
+        for s, ints in self.ints.items():
+            self.totals[s] = (self.totals[s] + ints[pos] * (k - e)) % self.r
+            self.want[s] = self.ref.mult(self.totals[s])
+
+    def check(self, label, seed, jac):
+        got = self.fn("_to_affine")(jac)
+        if got != self.want[seed]:
+            raise AssertionError(f"{label} seed {seed}: differs from the "
+                                 "oracle")
+
+
+def facade_counts():
+    return {name: k.launches for name, k in counters().items()}
+
+
+def facade_path(label, case, ops, integration=None, impl=None) -> dict:
+    """The path's launches since reset_counts, checked as read_counts does:
+    the kernels of `ops` (and of the query of `integration`, on the bucket
+    strategy `impl`) launched, the other integration's and strategy's
+    not."""
+    unused = []
+    if integration is not None:
+        ops = ops + query_kernels(integration, impl)
+        unused = [op for i, o in INTEGRATION_KERNELS.items()
+                  if i != integration for op in o]
+        if integration == "gapped":
+            unused += K2_FORMULAS
+        unused = [op for op in unused if op not in ops]
+    return read_counts(label, *path_kernels(case, ops, impl,
+                                            unused_ops=unused))
+
+
+def facade_ches(dev, fc, timer) -> dict:
+    """CHES, BGMW95 and CHES again through the facade on one point list:
+    the first call (split), FACADE_SEEDS repeat calls against as many
+    engine.msm_ches_device queries on the memo's plan (timed beside them,
+    the same kernels and counts), the BGMW call upgrading the plan in place
+    (the 3nh table's object kept) and a CHES call after it."""
+    from msm_blst_tpu_torch.msm import engine, recode
+
+    curve, case = fc.case.curve, fc.case
+    name = curve.name
+    ches, bgmw = fc.fn("_tile_pippenger_d_CHES"), fc.fn("_tile_pippenger_BGMW95")
+    paths = {}
+    first = FACADE_SEEDS[0]
+    reset_counts()
+    jac, total, parts = timer.call(lambda: ches(fc.points, fc.ints[first],
+                                                device=dev))
+    fc.check(f"{name} facade CHES first call", first, jac)
+    print(f"{name} facade CHES first call: {split_line(total, parts)}")
+    paths[f"{name}_facade_ches_first"] = facade_path(
+        f"{name} facade CHES first call", case, ["point_double", "point_dadd"],
+        "gapped", "prefix")
+    plan = fc.api._ches_plan(curve, fc.points, device=dev)
+    table = plan.table3nh
+    reset_counts()
+    times, host = [], []
+    for s in FACADE_SEEDS:
+        jac, total, parts = timer.call(lambda s=s: ches(fc.points, fc.ints[s],
+                                                        device=dev))
+        fc.check(f"{name} facade CHES", s, jac)
+        times.append(total)
+        host.append(sum(parts.get(k, 0.0) for k in
+                        ("_points_digest", "_scalars_device", "_jac_ints")))
+        print(f"{name} facade CHES repeat call, seed {s}: "
+              f"{split_line(total, parts)}")
+    facade = facade_counts()
+    paths[f"{name}_facade_ches"] = facade_path(
+        f"{name} facade CHES", case, [], "gapped", "prefix")
+    check_ches_k2(f"{name} facade CHES", case, facade, len(FACADE_SEEDS))
+    scalars = {s: recode.to_device(recode.scalars_from_ints(fc.ints[s]), dev)
+               for s in FACADE_SEEDS}
+    reset_counts()
+    eng = []
+    for s in FACADE_SEEDS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        jac = engine.msm_ches_device(plan, scalars[s])
+        torch.cuda.synchronize()
+        eng.append(time.perf_counter() - t)
+        # the facade's own host conversion: no launch on the path
+        fc.check(f"{name} facade engine query", s,
+                 timer.saved["_jac_ints"](plan.curve, jac))
+    engine_counts = facade_counts()
+    paths[f"{name}_facade_engine_ches"] = facade_path(
+        f"{name} facade engine query", case, [], "gapped", "prefix")
+    if facade != engine_counts:
+        raise AssertionError(f"{name} facade CHES launched {facade}, the "
+                             f"engine's queries {engine_counts}")
+    share = sum(host) / sum(times)
+    print(f"{name} facade CHES: {len(times)} repeat calls equal to the "
+          f"oracle, the same launches as {len(eng)} engine queries; call "
+          f"mean {1e3 * sum(times) / len(times):.3f} ms, min "
+          f"{1e3 * min(times):.3f} ms; engine query mean "
+          f"{1e3 * sum(eng) / len(eng):.3f} ms, min {1e3 * min(eng):.3f} ms;"
+          f" host share (digest, scalars, result) {100 * share:.1f}% "
+          f"({1e3 * sum(host) / len(host):.3f} ms a call) on {card_line()}")
+    s = FACADE_BGMW_SEED
+    reset_counts()
+    jac, total, parts = timer.call(lambda: bgmw(fc.points, fc.ints[s],
+                                                device=dev))
+    fc.check(f"{name} facade BGMW95", s, jac)
+    plan = fc.api._ches_plan(curve, fc.points, device=dev)
+    if plan.table3nh is not table or plan.table_nh is None:
+        raise AssertionError(f"{name} facade BGMW95: the plan was not "
+                             "upgraded in place")
+    print(f"{name} facade BGMW95 (the plan upgraded in place, nh table "
+          f"{tuple(plan.table_nh.XY.shape)}, the 3nh table's object kept): "
+          f"{split_line(total, parts)}")
+    paths[f"{name}_facade_bgmw_upgrade"] = facade_path(
+        f"{name} facade BGMW95", case, [], "weighted", "prefix")
+    reset_counts()
+    jac, total, parts = timer.call(lambda: ches(fc.points, fc.ints[s],
+                                                device=dev))
+    fc.check(f"{name} facade CHES after BGMW95", s, jac)
+    if "build_plan" in parts or fc.api._ches_plan(
+            curve, fc.points, device=dev).table3nh is not table:
+        raise AssertionError(f"{name} facade CHES after BGMW95 rebuilt")
+    print(f"{name} facade CHES after BGMW95: {split_line(total, parts)}")
+    paths[f"{name}_facade_ches_after_bgmw"] = facade_path(
+        f"{name} facade CHES after BGMW95", case, [], "gapped", "prefix")
+    return paths
+
+
+def facade_c2(dev, fc, timer) -> dict:
+    """The stale-plan hole of the JAX facade, closed: the point at
+    FACADE_C2_POS, which the JAX digest's probes never read, becomes G in
+    the same list object; the next CHES call must equal the new oracle."""
+    name = fc.case.curve.name
+    fc.replace(FACADE_C2_POS, 1)
+    s = FACADE_SEEDS[0]
+    reset_counts()
+    jac, total, parts = timer.call(lambda: fc.fn("_tile_pippenger_d_CHES")(
+        fc.points, fc.ints[s], device=dev))
+    fc.check(f"{name} facade C2", s, jac)
+    print(f"{name} facade C2: point {FACADE_C2_POS} replaced in place, the "
+          f"next CHES call equals the new oracle (a plan of its own): "
+          f"{split_line(total, parts)}")
+    return facade_path(f"{name} facade C2", fc.case,
+                       ["point_double", "point_dadd"], "gapped", "prefix")
+
+
+def facade_off_table(dev, case, timer) -> dict:
+    """One G1 CHES call at n = FACADE_OFF_N, off the config table: the
+    nearest shipped radix (api._facade_config)."""
+    fc = FacadeCase(case, FACADE_OFF_N, (WARM_SEED,), dev)
+    cfg = fc.api._facade_config(FACADE_OFF_N)
+    reset_counts()
+    jac, total, parts = timer.call(lambda: fc.fn("_tile_pippenger_d_CHES")(
+        fc.points, fc.ints[WARM_SEED], device=dev))
+    fc.check("G1 facade off-table n", WARM_SEED, jac)
+    print(f"G1 facade CHES at n = {FACADE_OFF_N} (c={cfg.c}, h={cfg.h}, "
+          f"|B|={cfg.b_size}) equals the oracle: {split_line(total, parts)}")
+    return facade_path("G1 facade off-table n", case,
+                       ["point_double", "point_dadd"], "gapped", "prefix")
+
+
+def facade_batch(dev, fc, timer) -> dict:
+    """Stock Pippenger (at the default window, and the tile at
+    FACADE_TILE_WINDOW), and on G1 p1s_add and p1s_to_affine with infinity
+    lanes and wbits at FACADE_WBITS over 2^FACADE_WBITS_LOG points, each a
+    path, each against the oracle."""
+    from msm_blst_tpu_torch.constants import P
+
+    api, case, curve = fc.api, fc.case, fc.case.curve
+    name, s = curve.name, FACADE_SEEDS[1]
+    paths = {}
+    calls = [("stock", lambda: fc.fn("s_mult_pippenger")(
+        fc.points, fc.ints[s], device=dev)),
+             ("tile", lambda: fc.fn("s_tile_pippenger")(
+                 fc.points, fc.ints[s], FACADE_TILE_WINDOW, device=dev))]
+    for what, call in calls:
+        reset_counts()
+        jac, total, _ = timer.call(call)
+        fc.check(f"{name} facade {what}", s, jac)
+        print(f"{name} facade {what}: equals the oracle, {1e3 * total:.3f} "
+              "ms")
+        paths[f"{name}_facade_{what}"] = facade_path(
+            f"{name} facade {what}", case, [], "weighted", "prefix")
+    if name != "G1":
+        return paths
+    ref, r = fc.ref, fc.r
+    e = [pow(2, i + 1, r) for i in range(fc.n)]  # P_i = e_i G
+    e[FACADE_C2_POS] = 1  # facade_c2 made it G
+    pts, e_inf = list(fc.points), list(e)
+    for i in FACADE_INF_LANES:
+        pts[i], e_inf[i] = (0, 0), 0
+    reset_counts()
+    jac, total, _ = timer.call(lambda: api.p1s_add(pts, device=dev))
+    if api.p1_to_affine(jac) != ref.mult(sum(e_inf) % r):
+        raise AssertionError("G1 facade p1s_add differs from the oracle")
+    print(f"G1 facade p1s_add: {fc.n} points ({len(FACADE_INF_LANES)} at "
+          f"infinity) equal to the oracle, {1e3 * total:.3f} ms")
+    paths["G1_facade_add"] = facade_path("G1 facade p1s_add", case,
+                                         ["point_dadd"])
+    rng = np.random.default_rng(FACADE_SEEDS[2])
+    zs = [int.from_bytes(rng.bytes(48), "little") % P for _ in pts]
+    jacs = [(x * z * z % P, y * z * z * z % P, z)
+            for (x, y), z in zip(pts, zs)]
+    for i in FACADE_INF_LANES:
+        jacs[i] = (1, 1, 0)
+    reset_counts()
+    got, total, _ = timer.call(lambda: api.p1s_to_affine(jacs, device=dev))
+    if got != pts:
+        raise AssertionError("G1 facade p1s_to_affine differs")
+    print(f"G1 facade p1s_to_affine: {fc.n} Jacobian points ({len(FACADE_INF_LANES)}"
+          f" at infinity, mapped to (0, 0)) equal to their affine points, "
+          f"{1e3 * total:.3f} ms")
+    paths["G1_facade_to_affine"] = facade_path("G1 facade p1s_to_affine",
+                                               case, [])
+    m = 1 << FACADE_WBITS_LOG
+    reset_counts()
+    table, total, _ = timer.call(lambda: api.p1s_mult_wbits_precompute(
+        fc.points[:m], FACADE_WBITS, device=dev))
+    print(f"G1 facade p1s_mult_wbits_precompute: {m} points, w = "
+          f"{FACADE_WBITS}, table {tuple(table.X.shape)}, {1e3 * total:.3f}"
+          " ms")
+    paths["G1_facade_wbits_precompute"] = facade_path(
+        "G1 facade wbits precompute", case, ["point_dadd_affine"])
+    ks = fc.ints[s][:m]
+    want = ref.mult(sum(k * w for k, w in zip(ks, e[:m])) % r)
+    reset_counts()
+    jac, total, _ = timer.call(lambda: api.p1s_mult_wbits(
+        table, ks, FACADE_WBITS, device=dev))
+    if api.p1_to_affine(jac) != want:
+        raise AssertionError("G1 facade p1s_mult_wbits differs from the "
+                             "oracle")
+    print(f"G1 facade p1s_mult_wbits: equals the oracle, {1e3 * total:.3f} ms")
+    paths["G1_facade_wbits"] = facade_path("G1 facade wbits", case,
+                                           ["point_double", "point_dadd"])
+    return paths
+
+
+def facade_native(fc) -> None:
+    """p1_construct_nh_scalars_nh_points at n = 2^16 (the native
+    conversion) timed whole, and its recode (recode.ches_recode_host)
+    timed alone beside the numpy twin's on the same scalar words; the
+    same words from both."""
+    from msm_blst_tpu_torch.constants import R_ORDER
+    from msm_blst_tpu_torch.msm import params, recode
+
+    ints = fc.ints[FACADE_SEEDS[0]]
+    cfg = params.CONFIGS.get(N_LOG) or params.make_config(N_LOG, c=13, h=20)
+    sc = recode.scalars_from_ints([k % R_ORDER for k in ints])
+    times = {"facade call": [], "native recode": [], "numpy twin": []}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        times[name].append(time.perf_counter() - t)
+        return out
+
+    for _ in range(3):
+        b, s, slots = timed("facade call", lambda: fc.api.
+                            p1_construct_nh_scalars_nh_points(ints, cfg))
+        got = timed("native recode", lambda: recode.ches_recode_host(
+            sc, cfg.c, cfg.h, cfg.ah))
+        want = timed("numpy twin", lambda: recode.ches_recode_host(
+            sc, cfg.c, cfg.h, cfg.ah, use_native=False))
+    tb, tm, ts = want
+    i_idx = np.arange(fc.n, dtype=np.int64)[:, None]
+    j_idx = np.arange(cfg.h, dtype=np.int64)[None, :]
+    t_slots = (3 * (i_idx * cfg.h + j_idx) + (tm - 1)).astype(np.int32)
+    if not (all(np.array_equal(g, w) for g, w in zip(got, want))
+            and np.array_equal(b, tb) and np.array_equal(s, ts)
+            and np.array_equal(slots, t_slots)):
+        raise AssertionError("facade native conversion differs from the "
+                             "numpy twin")
+    print(f"G1 facade p1_construct_nh_scalars_nh_points at 2^{N_LOG}, the "
+          "same words native and numpy; ms min (each of 3): " + "; ".join(
+              f"{k} {1e3 * min(v):.3f} ({', '.join(f'{1e3 * t:.3f}' for t in v)})"
+              for k, v in times.items()))
+
+
+def phase_facade(dev, g1, g2):
+    """The blst-named facade on the card: CHES (first call split, repeat
+    calls against the engine's query, the in-place BGMW upgrade, CHES
+    again) on G1 and G2 at 2^16, the stale-plan case (FACADE_C2_POS) and an
+    off-table n on G1, stock and tile (G1, G2), p1s_add, p1s_to_affine and
+    wbits (G1), and the native scalar conversion. Every result against the
+    oracle; each call group a path. Clears the plan memo and the
+    allocator's cache after. Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    print(f"facade phase on {card_line()}")
+    timer = FacadeTimer()
+    paths = {}
+    n = 1 << N_LOG
+    seeds = FACADE_SEEDS + (FACADE_BGMW_SEED,)
+    for case in (g1, g2):
+        fc = FacadeCase(case, n, seeds, dev)
+        paths.update(facade_ches(dev, fc, timer))
+        if case is g1:
+            paths["G1_facade_c2"] = facade_c2(dev, fc, timer)
+            facade_native(fc)
+        paths.update(facade_batch(dev, fc, timer))
+        del fc
+        timer.api._PLAN_CACHE.clear()
+        torch.cuda.empty_cache()
+    paths["G1_facade_off_table"] = facade_off_table(dev, g1, timer)
+    timer.restore()
+    timer.api._PLAN_CACHE.clear()
+    torch.cuda.empty_cache()
+    print(f"facade phase: {time.perf_counter() - t0:.3f} s")
+    return paths
+
+
 # The big-n phase: CONFIGS[21] (c = 22, h = 12, |B| = 874,437; BGMW aliased
 # into the 3nh table) on G1 and G2, CONFIGS[20]'s BGMW table (c' = 20,
 # h' = 13, not aliased) on G1, and the plan cache at n = 2^16
@@ -2260,7 +2698,7 @@ def main():
         "G2_ches_device_sos": phase_main_path(dev, g2, "sos", G2_SOS_SEEDS),
         **phase_algorithms(dev, g2, G2_ALGO_SEEDS)})
     for more in (phase_harness(dev, g1, g2), phase_protocol(dev, g1, g2),
-                 phase_bign(dev, g1, g2)):
+                 phase_facade(dev, g1, g2), phase_bign(dev, g1, g2)):
         if set(more) & set(paths):
             raise AssertionError(f"paths named twice: {set(more) & set(paths)}")
         paths.update(more)

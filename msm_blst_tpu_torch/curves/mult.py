@@ -99,7 +99,7 @@ def msm_wbits(curve: CurveOps, scalars: torch.Tensor, points: AffinePoint,
     absd, sign = _signed_window_digits(scalars, w)  # [h, n]
     if table is None:
         table = _multiples_table(curve, points, 1 << (w - 1))
-    acc = curve.xyzz_inf((1,), points.X.device)
+    acc = curve.xyzz_inf((1,), scalars.device)
     for j in range(absd.shape[0] - 1, -1, -1):
         pts = _gather_rows(table, absd[j])
         tile = curve.tree_reduce_xyzz(curve.xyzz_from_affine(pts,

@@ -1,8 +1,12 @@
 """MSM parameterization: bucket sets, digit-conversion tables, per-n configs.
 
-A numpy-only copy of msm_blst_tpu/msm/params.py: importing that module runs
-msm_blst_tpu/msm/__init__.py, which imports JAX. tests/test_torch_msm.py
-holds every table here equal to the JAX package's.
+A copy of msm_blst_tpu/msm/params.py: importing that module runs
+msm_blst_tpu/msm/__init__.py, which imports JAX. The bucket set and the
+digit conversion table come from the native library (native.py) unless the
+caller names the numpy twin (`use_native=False`), as in the JAX package
+when its library is built. tests/test_torch_msm.py and
+tests/test_torch_native.py hold every table here equal to the JAX
+package's.
 
 Host-side, init-time integer machinery (numpy + Python ints). Behavioral spec:
   * bucket set construction — reference auxiliaryfunc.h:257-288
@@ -43,8 +47,14 @@ def _omega23_even(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def construct_bucket_set(q: int, ah: int) -> np.ndarray:
-    """The CHES reduced bucket set B, |B| ~ 0.21 q, sorted ascending int32."""
+def construct_bucket_set(q: int, ah: int,
+                         use_native: bool | None = None) -> np.ndarray:
+    """The CHES reduced bucket set B, |B| ~ 0.21 q, sorted ascending int32.
+    `use_native`: None or True builds it natively, False with numpy."""
+    if use_native is not False:
+        from .. import native
+
+        return native.construct_bucket_set(q, ah)
     even = _omega23_even(max(q // 2, ah + 1))
     B = {0, 1} | set((np.nonzero(even[2: q // 2 + 1])[0] + 2).tolist())
     for i in range(q // 4, q // 2):
@@ -58,11 +68,19 @@ def construct_bucket_set(q: int, ah: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def digit_conversion_table(q: int, ah: int):
+def digit_conversion_table(q: int, ah: int, use_native: bool | None = None):
     """(m, b, alpha) arrays of size q+1: digit -> m*b (alpha=0) or q - m*b
-    (alpha=1, i.e. negate and carry). Write order matters (exact-product
-    entries must win over q-m*b entries), matching main_p1.cpp:139-153."""
-    bucket_set = construct_bucket_set(q, ah)
+    (alpha=1, i.e. negate and carry), and the bool mask of the digits
+    written. Write order matters (exact-product entries must win over
+    q-m*b entries), matching main_p1.cpp:139-153. `use_native`: None or
+    True builds the tables natively (every written entry has m >= 1, so
+    the mask is m != 0), False with numpy."""
+    bucket_set = construct_bucket_set(q, ah, use_native)
+    if use_native is not False:
+        from .. import native
+
+        m_t, b_t, a_t, _ = native.digit_conversion_table(q, bucket_set)
+        return m_t, b_t, a_t, m_t != 0
     m_t = np.zeros(q + 1, dtype=np.int32)
     b_t = np.zeros(q + 1, dtype=np.int32)
     a_t = np.zeros(q + 1, dtype=np.int32)
@@ -78,6 +96,23 @@ def digit_conversion_table(q: int, ah: int):
             a_t[idx] = alpha
             written[idx] = True
     return m_t, b_t, a_t, written
+
+
+def check_bucket_set_validity(q: int, ah: int) -> None:
+    """Every digit value in [0, q] must decompose as +-m*b (+carry), and no
+    two neighbours in the set may lie more than D_MAX_DIFF apart. Raises
+    ValueError on failure (reference main_bucket_set_construction.cpp:
+    74-122)."""
+    _, _, _, written = digit_conversion_table(q, ah)
+    missing = np.nonzero(~written)[0]
+    if missing.size:
+        raise ValueError(f"bucket set (q={q}, ah={ah}) misses digits "
+                         f"{missing[:10]}")
+    bs = construct_bucket_set(q, ah)
+    gaps = np.diff(bs)
+    if gaps.max(initial=1) > D_MAX_DIFF:
+        raise ValueError(f"bucket set gap {gaps.max()} exceeds "
+                         f"d_MAX_DIFF={D_MAX_DIFF}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,13 +1,15 @@
-"""Scalar recoding: host scalar containers, the host CHES recode, the
-on-device carry-speculative MB-radix-q recode, and the device BGMW95 / stock
-signed q/2 recode with the r - a fold.
+"""Scalar recoding: host scalar containers, the host CHES and BGMW95
+recodes, the on-device carry-speculative MB-radix-q recode, and the device
+BGMW95 / stock signed q/2 recode with the r - a fold.
 
-Port of msm_blst_tpu/msm/recode.py:25-153, 229-249, 276-356 (the host
-recode without its `native` branch). Scalars cross the host boundary as
-uint32[8, n] little-endian words (numpy, as in the JAX package) and live on
-the device as int32[8, n] with the same bits (`to_device`). The device
-functions widen words to int64 and mask before any shift or compare, since
-torch compares int32 as signed.
+Port of msm_blst_tpu/msm/recode.py:25-226, 229-249, 276-356. The host
+recodes run the native library (native.py, C++) unless the caller names
+the numpy twin (`use_native=False`), as the JAX package's do when its
+library is built; the twin is what the tests hold the native pass against.
+Scalars cross the host boundary as uint32[8, n] little-endian words (numpy,
+as in the JAX package) and live on the device as int32[8, n] with the same
+bits (`to_device`). The device functions widen words to int64 and mask
+before any shift or compare, since torch compares int32 as signed.
 """
 
 from __future__ import annotations
@@ -26,13 +28,12 @@ WORD_MASK = 0xFFFFFFFF
 
 
 def scalars_from_ints(xs) -> np.ndarray:
-    """Python ints -> uint32[8, n] little-endian."""
-    out = np.zeros((8, len(xs)), dtype=np.uint32)
-    for j, x in enumerate(xs):
-        assert 0 <= x < (1 << 256)
-        for i in range(8):
-            out[i, j] = (x >> (32 * i)) & WORD_MASK
-    return out
+    """Python ints in [0, 2^256) -> uint32[8, n] little-endian: one join of
+    their 32-byte little-endian forms, read as words (an int outside the
+    range raises OverflowError)."""
+    raw = b"".join(int(x).to_bytes(32, "little") for x in xs)
+    words = np.frombuffer(raw, dtype="<u4").astype(np.uint32)
+    return np.ascontiguousarray(words.reshape(-1, 8).T)
 
 
 def scalars_to_ints(a: np.ndarray) -> list:
@@ -100,14 +101,25 @@ def qary_digits_host(scalars_u32: np.ndarray, c: int, h: int) -> np.ndarray:
     return digits.astype(np.int32)
 
 
-def ches_recode_host(scalars_u32: np.ndarray, c: int, h: int, ah: int):
+def ches_recode_host(scalars_u32: np.ndarray, c: int, h: int, ah: int,
+                     use_native: bool | None = None):
     """MB-radix-q recoding on the host (reference auxiliaryfunc.h:92-118):
     per digit (m in {1,2,3}, bucket value b, sign), carrying +1 on alpha=1
-    digits. Returns (b int32[n, h], m int32[n, h], sign bool[n, h])."""
+    digits. Returns (b int32[n, h], m int32[n, h], sign bool[n, h]).
+
+    `use_native`: None or True runs the native pass (native.ches_recode),
+    False the numpy twin; both raise ValueError when the leading digit
+    carries."""
     from .params import digit_conversion_table
 
-    m_t, b_t, a_t, _ = digit_conversion_table(1 << c, ah)
-    digits = qary_digits_host(reduce_mod_r_host(scalars_u32), c, h)
+    scalars_u32 = reduce_mod_r_host(scalars_u32)
+    m_t, b_t, a_t, _ = digit_conversion_table(1 << c, ah, use_native)
+    if use_native is not False:
+        from .. import native
+
+        b_g, m_g, s_g = native.ches_recode(scalars_u32, c, h, m_t, b_t, a_t)
+        return b_g.T.copy(), m_g.T.copy(), s_g.T.copy()
+    digits = qary_digits_host(scalars_u32, c, h)
     n = digits.shape[0]
     b_out = np.zeros((n, h), dtype=np.int32)
     m_out = np.zeros((n, h), dtype=np.int32)
@@ -123,6 +135,84 @@ def ches_recode_host(scalars_u32: np.ndarray, c: int, h: int, ah: int):
         raise ValueError("leading CHES digit required a carry; the config's "
                          "a_h must prevent this")
     return b_out, m_out, s_out
+
+
+def _r_minus_host(s: np.ndarray) -> np.ndarray:
+    """r - a of uint32[8, n] scalars a <= r, one borrow chain."""
+    s = s.astype(np.int64)
+    r = _R_WORDS_NP.astype(np.int64)
+    out = np.empty_like(s)
+    borrow = np.zeros(s.shape[1:], dtype=np.int64)
+    for i in range(8):
+        d = r[i] - s[i] - borrow
+        borrow = (d < 0).astype(np.int64)
+        out[i] = d & WORD_MASK
+    return out.astype(np.uint32)
+
+
+def _signed_q2_host(scalars_u32: np.ndarray, c: int, h: int):
+    """Signed q/2 digits int64[n, h]: digits above q/2 become d - q and
+    carry one into the next window (the top window keeps its carry)."""
+    q = 1 << c
+    digits = qary_digits_host(scalars_u32, c, h).astype(np.int64)
+    half = q >> 1
+    for j in range(h - 1):
+        over = digits[:, j] > half
+        digits[:, j] -= np.where(over, q, 0)
+        digits[:, j + 1] += over
+    if (digits[:, h - 1] > half).any():
+        raise ValueError("BGMW95 leading digit exceeds q/2")
+    return digits
+
+
+def bgmw_recode_host(scalars_u32: np.ndarray, c: int, h: int,
+                     use_native: bool | None = None):
+    """BGMW95 signed q/2 recoding with the r - a trick for tight configs
+    (reference auxiliaryfunc.h:130-145 and main_p1.cpp:294-398): where
+    c*h <= 255 and a scalar's top 64 bits exceed 2^62, a becomes r - a and
+    its digit signs flip. Returns (|digit| int32[n, h], sign bool[n, h]).
+
+    `use_native`: None or True runs the native pass (native.bgmw_recode),
+    False the numpy twin."""
+    scalars_u32 = reduce_mod_r_host(scalars_u32)
+    tight = c * h <= 255  # needs the group-order negation trick
+    if use_native is not False:
+        from .. import native
+
+        a_g, s_g = native.bgmw_recode(scalars_u32, c, h, tight)
+        return a_g.T.copy(), s_g.T.copy()
+    scal = scalars_u32
+    flip = np.zeros(scalars_u32.shape[1], dtype=bool)
+    if tight:
+        # condition: top 64 bits > 2^62  (main_p1.cpp:311-318)
+        top = scalars_u32[6].astype(np.uint64) | (
+            scalars_u32[7].astype(np.uint64) << np.uint64(32))
+        flip = top > np.uint64(1 << 62)
+        scal = np.where(flip, _r_minus_host(scalars_u32), scalars_u32)
+    digits = _signed_q2_host(scal, c, h)
+    sign = digits < 0
+    absd = np.abs(digits).astype(np.int32)
+    sign ^= flip[:, None]
+    sign &= absd != 0
+    return absd, sign
+
+
+def booth_recode_host(scalars_u32: np.ndarray, c: int):
+    """Signed-window recoding for the stock (no-precompute) Pippenger path:
+    h = ceil(256/c) windows of signed digits in [-q/2, q/2] with
+    sum digit_j * q^j == scalar (blst's booth encoding, reference
+    ec_mult.h:46-55, may choose other digits)."""
+    return bgmw_recode_host_nofold(scalars_u32, c, -(-256 // c))
+
+
+def bgmw_recode_host_nofold(scalars_u32: np.ndarray, c: int, h: int):
+    """The signed q/2 recoding without the r - a fold. Returns (|digit|
+    int32[n, h], sign bool[n, h])."""
+    digits = _signed_q2_host(scalars_u32, c, h)
+    sign = digits < 0
+    absd = np.abs(digits).astype(np.int32)
+    sign &= absd != 0
+    return absd, sign
 
 
 def to_device(scalars_u32: np.ndarray, device=None) -> torch.Tensor:
