@@ -129,7 +129,27 @@ Phases, each reported on its own lines:
      batch and at a window's 3n lanes, each against its plain version;
      the 2^16 plan through the cache (save_plan, load_plan) and two
      queries from the loaded plan;
- 12. a JSON line of per-kernel results (the new shapes under
+ 12. sharded: the sharded paths (parallel/sharded.py) on 4 spawned ranks
+     over a FileStore in a temporary directory (parallel.run_ranks: on
+     one card all four share it in a gloo group; a rank that fails or
+     hangs past the timeout fails the run): K2 dadd first at the butterfly's widths
+     (109,244 lanes, G1 also 874,437; G2 109,244) against its plain
+     version; then at CONFIGS[16] G1's points-axis CHES and BGMW (the
+     r - a fold), the 2 x 2 mesh's CHES, the window-sharded "j" CHES (h =
+     14 padded to 16) and BGMW (its own nh table, h' = 15 padded to 16),
+     G2's points-axis CHES, and at CONFIGS[21] G1's window-sharded CHES
+     and aliased BGMW on one rank-local plan of 3 windows a rank; each
+     plan built by one rank after another and sharded (its block copied,
+     the full plan dropped); on every rank, each path's warm-up and
+     counted query against the oracle, with 0, 1, r - 1, an equal pair,
+     r, r + 5 and 2^255 - 1 among the scalars; each stage's launches (the
+     all-reduce K2 dadd once a round and nothing else), the stages timed
+     (local accumulation, the all-reduce's exchanges and K2 dadds, the
+     integration), the rows held, the peak memory; then the edge cases: a
+     3-rank subgroup refused ("power of two"), a one-rank NCCL group's
+     query against msm_ches_device, a "j" plan refused by the points-axis
+     functions; each path's launches summed over the ranks;
+ 13. a JSON line of per-kernel results (the new shapes under
      "at_<shape>"), then the final status line.
 
 It catches no exception: any failure exits non-zero before the last line.
@@ -2657,6 +2677,301 @@ def phase_drivers(dev):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 12: sharded (parallel/sharded.py on torch.distributed)
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 4
+SHARD_TIMEOUT_S = 600  # a rank that fails or hangs fails the run
+SHARD_REPS = 2  # stage-timed runs of each path on each rank
+SHARD_SEED = 2  # the scalar set of the counted query (WARM_SEED: warm-up)
+# The plans of the sharded paths, each built once a rank, in turns, and
+# sharded for its paths: (curve, log n, layout, paths), a path (name, mesh,
+# query). G1 plans hold the CHES and BGMW tables: at CONFIGS[16] BGMW has
+# its own nh table (c' = 17, h' = 15: the r - a fold), at CONFIGS[21] it
+# reads the 3nh table's m = 1 rows (c' = c = 22, h = 12); G2's, CHES only.
+SHARD_PLANS = (
+    ("G1", 16, "i", (("points_ches", "points", "ches"),
+                     ("points_bgmw", "points", "bgmw"),
+                     ("mesh2d_ches", "2d", "ches_2d"))),
+    ("G1", 16, "j", (("windows_ches", "windows", "ches_windows"),
+                     ("windows_bgmw", "windows", "bgmw_windows"))),
+    ("G2", 16, "i", (("points_ches", "points", "ches"),)),
+    ("G1", 21, "j", (("windows_ches", "windows", "ches_windows"),
+                     ("windows_bgmw", "windows", "bgmw_windows"))),
+)
+SHARD_QUERIES = {  # query -> (function's name, its integration)
+    "ches": ("sharded_msm_ches", "gapped"),
+    "bgmw": ("sharded_msm_bgmw", "weighted"),
+    "ches_2d": ("sharded_msm_ches_2d", "gapped"),
+    "ches_windows": ("sharded_msm_ches_windows", "gapped"),
+    "bgmw_windows": ("sharded_msm_bgmw_windows", "weighted"),
+}
+BUTTERFLY_WIDTHS = {"G1": (109_244, 874_437), "G2": (109_244,)}
+
+
+def shard_scalars(n: int, seed: int) -> np.ndarray:
+    """bign_scalars (lanes 0 and 1: 0 and r - 1), then lane 2 = 1, lanes 3
+    and 4 equal, lane 5 = r, lane 6 = r + 5, lane 7 = 2^255 - 1 (the
+    recodes' domain ends at 2^255)."""
+    from msm_blst_tpu_torch.constants import R_ORDER
+    from msm_blst_tpu_torch.msm import recode
+
+    sc = bign_scalars(n, seed)
+    sc[:, 4] = sc[:, 3]
+    sc[:, [2, 5, 6, 7]] = recode.scalars_from_ints(
+        [1, R_ORDER, R_ORDER + 5, (1 << 255) - 1])
+    return sc
+
+
+def counts_of(fn):
+    """(fn(), the launches it made by kernel name), the card's queue
+    finished before and after."""
+    torch.cuda.synchronize()
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in counters().items()}
+
+
+def shard_path(rank, q, local, sets, want, label):
+    """One sharded path on this rank: a warm-up and a counted query, each
+    against the oracle; each stage's launches apart; the stages timed
+    (ShardedQuery.stage_ms) and the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+
+    def check(seed, jac):
+        got = q.curve.affine_to_ints(q.curve.jac_to_affine(jac))[0]
+        if got != want[seed]:
+            raise AssertionError(f"{label} rank {rank} seed {seed}: differs "
+                                 "from the oracle")
+    check(WARM_SEED, q(sets[WARM_SEED]))
+    sc = sets[SHARD_SEED]
+    jac, launches = counts_of(lambda: q(sc))
+    check(SHARD_SEED, jac)
+    buckets, local_l = counts_of(lambda: q.local(sc))
+    reduced, reduce_l = counts_of(lambda: q.allreduce(buckets))
+    _, integrate_l = counts_of(lambda: q.integrate(reduced))
+    tables = [t.XY for t in (local.table3nh, local.table_nh) if t is not None]
+    return {"rows": sum(t.shape[0] for t in tables),
+            "bytes": sum(t.numel() * 4 for t in tables),
+            "buckets": buckets.X.shape[-1], "launches": launches,
+            "stages": (local_l, reduce_l, integrate_l),
+            **q.stage_ms(sc, SHARD_REPS),
+            "peak_gib": torch.cuda.max_memory_allocated() / GIB}
+
+
+def shard_edges(rank, plan, sc, mesh):
+    """The edge cases on this rank: a 3-rank subgroup refused ("power of
+    two") on its members; on rank 0, a one-rank NCCL group's query
+    against engine.msm_ches_device on the same plan (its communicator
+    started by an all-reduce); a "j" plan refused by the points-axis
+    functions."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from msm_blst_tpu_torch.msm import msm_ches_device
+    from msm_blst_tpu_torch.parallel import sharded as S
+
+    out = {}
+    curve, dev = plan.curve, sc.device
+    three = dist.new_group([0, 1, 2])
+    nccl = dist.new_group([0], backend="nccl")
+    if rank < 3:
+        try:
+            S.ec_allreduce_xyzz(curve, curve.xyzz_inf((8,), dev), three)
+        except ValueError as e:
+            out["three_ranks"] = str(e)
+        if "power of two" not in out.get("three_ranks", ""):
+            raise AssertionError(f"rank {rank}: a 3-rank group was not "
+                                 "refused")
+    if rank == 0:
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one, group=nccl)
+        mesh1 = DeviceMesh.from_group(nccl, "cuda", mesh_dim_names=("points",))
+        q = S.sharded_msm_ches(S.shard_plan_tables(plan, mesh1), mesh1)
+        got = curve.affine_to_ints(curve.jac_to_affine(q(sc)))[0]
+        want = curve.affine_to_ints(curve.jac_to_affine(
+            msm_ches_device(plan, sc)))[0]
+        if got != want or q.rounds() != 0 or float(one) != 1.0:
+            raise AssertionError("a one-rank NCCL group differs from "
+                                 "msm_ches_device")
+        out["nccl_one_rank"] = (f"{dist.get_backend(nccl)} group of "
+                                f"{dist.get_world_size(nccl)}, 0 rounds, "
+                                "equal to msm_ches_device")
+    j_plan = dataclasses.replace(plan, layout="j")
+    for fn in (S.shard_plan_tables, S.sharded_msm_ches, S.sharded_msm_bgmw):
+        try:
+            fn(j_plan, mesh)
+        except ValueError as e:
+            if "i-major" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{fn.__name__} took a 'j' plan")
+    out["j_refused"] = "shard_plan_tables, sharded_msm_ches, sharded_msm_bgmw"
+    return out
+
+
+def sharded_rank(rank: int, world: int, dev) -> dict:
+    """One rank of the sharded phase (a spawned process on `dev`, which
+    run_ranks chose: on one card, every rank shares it in a gloo group): each plan of SHARD_PLANS built in turns with the
+    other ranks and sharded for its paths (the full plan dropped, but for
+    the edge cases' CONFIGS[16] "i" plan), each path's readings, then the
+    edge cases."""
+    from msm_blst_tpu_torch import kernels, refimpl
+    from msm_blst_tpu_torch.curves import G1, G2
+    from msm_blst_tpu_torch.msm import build_plan, fixed_point_list, params
+    from msm_blst_tpu_torch.msm import recode
+    from msm_blst_tpu_torch.parallel import sharded as S
+    from msm_blst_tpu_torch.parallel.ranks import in_turns
+
+    kernels.load()  # the parent's build: nothing compiles here
+    meshes = {"points": S.make_points_mesh(world),
+              "windows": S.make_windows_mesh(world),
+              "2d": S.make_2d_mesh(2, world // 2)}
+    out = {"paths": {}}
+    for i, (cname, log_n, layout, paths) in enumerate(SHARD_PLANS):
+        curve = {"G1": G1, "G2": G2}[cname]
+        n = 1 << log_n
+        host = {s: shard_scalars(n, s) for s in (WARM_SEED, SHARD_SEED)}
+        sets = {s: recode.to_device(a, dev) for s, a in host.items()}
+        ref = refimpl.CURVES[cname]
+        want = {s: ref.mult(weighted_total(a)) for s, a in host.items()}
+        keep = i == 0  # the edge cases run on the first plan's
+
+        def build():
+            t0 = time.perf_counter()
+            full = build_plan(curve, fixed_point_list(curve, n, device=dev),
+                              params.CONFIGS[log_n], stock=False,
+                              bgmw=cname == "G1", streamed=layout == "j")
+            locs = {m: (S.shard_plan_tables_jmajor if m == "windows"
+                        else S.shard_plan_tables)(full, meshes[m])
+                    for m in {m for _, m, _ in paths}}
+            torch.cuda.synchronize()
+            return (full if keep else None), locs, time.perf_counter() - t0
+
+        # one rank after another: four "i" builds of the G2 2^16 plan at
+        # once exhausted the card's memory, and each rank sees the others'
+        # memory in mem_get_info, which sizes a streamed build
+        full, locs, build_s = in_turns(rank, world, dev, build)
+        for name, m, kind in paths:
+            label = f"{cname}_sharded_{name}_2^{log_n}"
+            fn = getattr(S, SHARD_QUERIES[kind][0])
+            out["paths"][label] = {"build_s": build_s, "query": kind,
+                                   **shard_path(
+                rank, fn(locs[m], meshes[m]), locs[m], sets, want,
+                label)}
+        if keep:
+            out["edges"] = shard_edges(rank, full, sets[SHARD_SEED],
+                                       meshes["points"])
+        del full, locs, sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def butterfly_kernels(dev, case):
+    """K2 dadd at the butterfly's widths (the CHES bucket arrays of
+    CONFIGS[16] and, G1, CONFIGS[21]) against its plain version, on the
+    lanes k2_lanes makes of the 2^16 fixed points, repeated to the width."""
+    from msm_blst_tpu_torch.curves import XyzzPoint, cuda_point
+    from msm_blst_tpu_torch.msm import fixed_point_list
+
+    curve, E = case.curve, case.elem_bytes
+    acc, other, _ = k2_lanes(curve, fixed_point_list(curve, 1 << N_LOG,
+                                                     device=dev))
+    for B in BUTTERFLY_WIDTHS[curve.name]:
+        k = -(-B // (1 << N_LOG))
+
+        def wide(p):
+            return XyzzPoint(*(torch.cat([x] * k, dim=-1)[..., :B]
+                               .contiguous() for x in p))
+        a, b = wide(acc), wide(other)
+        record(f"{case.name('point_dadd')} butterfly {B}",
+               lambda: tuple(cuda_point.xyzz_dadd(curve, a, b)),
+               lambda: tuple(cuda_point.xyzz_dadd_plain(curve, a, b)), 10, 1,
+               12 * E * B, case.mont(DADD) * B)
+        del a, b
+    torch.cuda.empty_cache()
+
+
+def check_sharded_path(label, case, integration, rows) -> dict:
+    """A sharded path's launches, from each rank's readings: each rank's
+    query launched its three stages' kernels and nothing else, the
+    all-reduce K2 dadd once a round and nothing else; a CHES query no
+    other dadd; together the kernels of its single-card query. Returns
+    the launches summed over the ranks."""
+    dadd = case.name("point_dadd")
+    rounds = rows[0]["rounds"]
+    for rank, r in enumerate(rows):
+        local_l, reduce_l, integrate_l = r["stages"]
+        whole = {k: local_l[k] + reduce_l[k] + integrate_l[k]
+                 for k in local_l}
+        if whole != r["launches"]:
+            raise AssertionError(f"{label} rank {rank}: the stages launched "
+                                 f"{whole}, the query {r['launches']}")
+        stray = {k: v for k, v in reduce_l.items() if v and k != dadd}
+        if reduce_l[dadd] != rounds or stray:
+            raise AssertionError(f"{label} rank {rank}: the all-reduce "
+                                 f"launched {dadd} {reduce_l[dadd]} times "
+                                 f"over {rounds} rounds, and {stray}")
+        if integration == "gapped" and r["launches"][dadd] != rounds:
+            raise AssertionError(f"{label} rank {rank}: {dadd} launched "
+                                 f"{r['launches'][dadd]} times, not {rounds}")
+    total = {k: sum(r["launches"][k] for r in rows) for k in rows[0]["launches"]}
+    return check_path(label, total, *path_kernels(
+        case, query_kernels(integration, "prefix") + ["point_dadd"],
+        "prefix"))
+
+
+def phase_sharded(dev, g1, g2):
+    """The sharded paths (parallel/sharded.py) on SHARD_RANKS spawned ranks
+    (on one card, a gloo group sharing it): K2 dadd at the butterfly's widths
+    first, then each rank's readings by path (sharded_rank), every result
+    against the oracle on every rank, the launches checked
+    (check_sharded_path), and the edge cases. Returns the launches by
+    path, summed over the ranks."""
+    from msm_blst_tpu_torch.parallel import run_ranks
+    from msm_blst_tpu_torch.parallel.ranks import group_backend
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"sharded: the card's free memory {free / GIB:.3f} of "
+          f"{total / GIB:.3f} GiB; this process holds "
+          f"{torch.cuda.memory_allocated(dev) / GIB:.3f} GiB allocated")
+    for case in (g1, g2):
+        butterfly_kernels(dev, case)
+    cards = min(SHARD_RANKS, torch.cuda.device_count())
+    where = (f"{SHARD_RANKS} ranks sharing one {card_line()}" if cards == 1
+             else f"{SHARD_RANKS} ranks on {cards} cards, {card_line()}")
+    where += f", {group_backend('cuda', SHARD_RANKS)} group"
+    per_rank = run_ranks(sharded_rank, SHARD_RANKS, dev,
+                         timeout_s=SHARD_TIMEOUT_S)
+    paths = {}
+    for label in per_rank[0]["paths"]:
+        rows = [r["paths"][label] for r in per_rank]
+        kind = rows[0]["query"]
+        case = g1 if label.startswith("G1") else g2
+        for rank, r in enumerate(rows):
+            print(f"{label} rank {rank} ({where}): equal to the oracle "
+                  f"(2 sets); shard build {r['build_s']:.3f} s, {r['rows']} "
+                  f"rows ({r['bytes'] / GIB:.3f} GiB), {r['buckets']} "
+                  f"buckets; local {r['local_ms']:.3f} ms, all-reduce "
+                  f"{r['allreduce_ms']:.3f} ms (exchange "
+                  f"{r['exchange_ms']:.3f} + K2 dadd {r['dadd_ms']:.3f}, "
+                  f"{r['rounds']} rounds), integration "
+                  f"{r['integrate_ms']:.3f} ms, total {r['total_ms']:.3f} ms;"
+                  f" peak {r['peak_gib']:.3f} GiB")
+        paths[label] = check_sharded_path(label, case,
+                                          SHARD_QUERIES[kind][1], rows)
+    for rank, r in enumerate(per_rank):
+        print(f"sharded edges rank {rank}: {r['edges']}")
+    print(f"sharded phase: {time.perf_counter() - t0:.1f} s ({where})")
+    return paths
+
+
 # The TPU kernel each kernel replaces, by name or by op (the point formulas
 # share one builder, whose dadd K9 replaces where utils/scans.py fold calls
 # it; the segmented levels share another, K6's partial stages the
@@ -2698,7 +3013,8 @@ def main():
         "G2_ches_device_sos": phase_main_path(dev, g2, "sos", G2_SOS_SEEDS),
         **phase_algorithms(dev, g2, G2_ALGO_SEEDS)})
     for more in (phase_harness(dev, g1, g2), phase_protocol(dev, g1, g2),
-                 phase_facade(dev, g1, g2), phase_bign(dev, g1, g2)):
+                 phase_facade(dev, g1, g2), phase_bign(dev, g1, g2),
+                 phase_sharded(dev, g1, g2)):
         if set(more) & set(paths):
             raise AssertionError(f"paths named twice: {set(more) & set(paths)}")
         paths.update(more)

@@ -39,7 +39,8 @@ from ..device import resolve
 from ..msm import (build_plan, cache, engine, fixed_point_list, msm_bign,
                    recode)
 from ..msm.prefix_pipeline import chunks_for, segment_starts
-from .run_msm import config_of, sync
+from ..utils.profiling import sync
+from .run_msm import config_of
 
 
 def stages(plan, algo: str):

@@ -32,7 +32,8 @@ from ..device import resolve
 from ..msm import (build_plan, cuda_scan, engine, fixed_point_list,
                    integrate_gapped, params, recode)
 from ..msm import prefix_pipeline as pp
-from .run_msm import config_of, sync
+from ..utils.profiling import sync
+from .run_msm import config_of
 
 
 def stages(plan):

@@ -36,7 +36,6 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 from .. import refimpl
 from ..constants import R_ORDER
@@ -47,6 +46,7 @@ from ..msm import (build_plan, cache, fixed_point_list, msm_bgmw_device,
                    params, recode)
 from ..msm.precompute import (build_bgmw_table,
                               build_bgmw_table_rows_streamed)
+from ..utils.profiling import sync
 
 STOCK = "stock Pippenger (no precompute)"
 CHES_DEVICE = "CHES q/5 (integral device conversion)"
@@ -61,12 +61,6 @@ METHODS = [
     (BGMW, lambda plan, nih, sc_np, sc: msm_bgmw_device(plan, sc)),
     (STOCK, lambda plan, nih, sc_np, sc: msm_stock_pippenger(plan, sc)),
 ]
-
-
-def sync(device: torch.device) -> None:
-    """The completion barrier: wait for the card's queued work."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def config_of(name: str):

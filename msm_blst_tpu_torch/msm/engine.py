@@ -193,15 +193,21 @@ def bgmw_slots(i_idx, j_idx, h: int, n: int = 0, layout: str = "i"):
     return i_idx * h + j_idx
 
 
-def bgmw_table_slots(plan: MsmPlan, slots):
-    """The BGMW table and its slots: the dedicated nh table, or the stride-3
-    view of the 3nh CHES table when the radixes match: its m=1 rows, at
-    3*slot in both layouts (3*(i*h+j) and 3*(j*n+i))."""
+def bgmw_table(plan: MsmPlan):
+    """(the BGMW table, its rows a slot): the dedicated nh table (1), or the
+    stride-3 view of the 3nh CHES table when the radixes match (3): its m=1
+    rows, at 3*slot in both layouts (3*(i*h+j) and 3*(j*n+i))."""
     if plan.table_nh is not None:
-        return plan.table_nh, slots
+        return plan.table_nh, 1
     if plan.bgmw_stride3 and plan.table3nh is not None:
-        return plan.table3nh, slots * 3
+        return plan.table3nh, 3
     raise ValueError("plan has no BGMW table (build_plan(..., bgmw=True))")
+
+
+def bgmw_table_slots(plan: MsmPlan, slots):
+    """The BGMW table and the rows of `slots` in it (bgmw_table)."""
+    table, stride = bgmw_table(plan)
+    return table, slots if stride == 1 else slots * stride
 
 
 def _ches_query(plan: MsmPlan, slots, keys, signs, impl) -> JacPoint:
@@ -233,20 +239,14 @@ def _ches_streams(plan: MsmPlan, scalars: torch.Tensor,
 
 def _bgmw_streams(plan: MsmPlan, scalars: torch.Tensor):
     """The BGMW95 digit stream, flat [n*h']: (the table it reads, slots in
-    that table, |digit| keys, signs). For tight configs (c'*h' <= 255) the
-    top digit bound exceeds q/2, so the group-order fold a -> r - a (and a
-    global sign flip) runs first, as the reference does on the host."""
+    that table, |digit| keys, signs), the digits of
+    recode.bgmw_digits_device (mod r, then the r - a fold for tight
+    configs)."""
     cfg = plan.cfg
-    c, h = cfg.c_bgmw, cfg.h_bgmw
+    h = cfg.h_bgmw
     n = scalars.shape[1]
     dev = scalars.device
-    scalars = recode.reduce_mod_r_device(scalars)
-    flip = None
-    if c * h <= 255:
-        scalars, flip = recode.fold_r_minus_a_device(scalars)
-    absd, sign = recode.signed_digits_device(scalars, c, h)  # [h, n]
-    if flip is not None:
-        sign = sign ^ flip[None, :]
+    absd, sign = recode.bgmw_digits_device(scalars, cfg.c_bgmw, h)  # [h, n]
     i_idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
     j_idx = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
     table, slots = bgmw_table_slots(

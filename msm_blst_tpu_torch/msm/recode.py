@@ -2,7 +2,7 @@
 recodes, the on-device carry-speculative MB-radix-q recode, and the device
 BGMW95 / stock signed q/2 recode with the r - a fold.
 
-Port of msm_blst_tpu/msm/recode.py:25-226, 229-249, 276-356. The host
+Port of msm_blst_tpu/msm/recode.py:25-226, 229-273, 276-356. The host
 recodes run the native library (native.py, C++) unless the caller names
 the numpy twin (`use_native=False`), as the JAX package's do when its
 library is built; the twin is what the tests hold the native pass against.
@@ -279,6 +279,29 @@ def qary_digits_device(scalars: torch.Tensor, c: int, h: int) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def ches_recode_device(scalars: torch.Tensor, c: int, h: int, tables):
+    """Device MB-radix-q recoding off the unpacked digit tables `tables` =
+    (m_t, b_t, a_t), int32[q+1] tensors (params.digit_conversion_table's
+    first three): h sequential lookups, each window's digit plus the carry
+    the window below left (alpha), as the JAX package's
+    ches_recode_device. The port's queries read the packed table
+    (ches_recode_device_packed), which every plan carries.
+
+    Returns (b int32[h, n], m int32[h, n], sign bool[h, n])."""
+    m_t, b_t, a_t = tables
+    digits = qary_digits_device(reduce_mod_r_device(scalars), c, h)
+    carry = torch.zeros(digits.shape[1], dtype=torch.int32,
+                        device=digits.device)
+    bs, ms, ss = [], [], []
+    for j in range(h):
+        d = (digits[j] + carry).to(torch.int64)
+        bs.append(b_t[d])
+        ms.append(m_t[d])
+        carry = a_t[d]
+        ss.append(carry == 1)
+    return torch.stack(bs), torch.stack(ms), torch.stack(ss)
+
+
 def ches_recode_device_packed(scalars: torch.Tensor, c: int, h: int,
                               packed_table: torch.Tensor):
     """Device MB-radix-q recoding off a packed digit table: the pairs
@@ -346,3 +369,20 @@ def signed_digits_device(scalars: torch.Tensor, c: int, h: int):
         outs.append(d)
     d = torch.stack(outs)
     return d.abs().to(torch.int32), d < 0
+
+
+def bgmw_digits_device(scalars: torch.Tensor, c: int, h: int):
+    """The BGMW95 digits of int32[8, n] scalars: reduced mod r first (the
+    recodes' domain is [0, 2^255)), then for tight configs (c*h <= 255,
+    where the top digit bound exceeds q/2) the group-order fold a -> r - a,
+    whose flip inverts the digit signs, as the reference does on the host;
+    then the signed q/2 digits. Returns (|digit| int32[h, n], sign
+    bool[h, n])."""
+    scalars = reduce_mod_r_device(scalars)
+    flip = None
+    if c * h <= 255:
+        scalars, flip = fold_r_minus_a_device(scalars)
+    absd, sign = signed_digits_device(scalars, c, h)
+    if flip is not None:
+        sign = sign ^ flip[None, :]
+    return absd, sign

@@ -119,6 +119,13 @@ def time_ms(fn, device, reps: int = 10, warmup: int = 1) -> float:
     return timer(fn, reps, warmup)
 
 
+def sync(device) -> None:
+    """Wait for `device`'s queued work (torch.cuda.synchronize on the
+    card; nothing on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def device_name(device) -> str:
     """The card's name (torch.cuda.get_device_name), or "cpu"."""
     device = torch.device(device)

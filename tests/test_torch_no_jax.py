@@ -62,7 +62,8 @@ def test_g2_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("name", ["microbench", "mxu_experiment",
                                   "gather_bench", "run_msm", "profile_stages",
-                                  "bign_profile"])
+                                  "bign_profile", "sharded_bign",
+                                  "scaling_model", "dcn_sim"])
 def test_drivers_default_to_the_card(name):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     r = subprocess.run([sys.executable, "-m",
@@ -110,13 +111,27 @@ def test_new_modules_are_walked():
                 "protocol.tower", "protocol.hash_to_curve",
                 "protocol.device_map", "protocol.pairing", "protocol.glv",
                 "protocol.keygen", "protocol.signatures", "curves.serialize",
-                "utils.exports", "api", "native"):
+                "utils.exports", "api", "native", "parallel",
+                "parallel.sharded", "parallel.ranks", "drivers.sharded_bign",
+                "drivers.scaling_model", "drivers.dcn_sim"):
         assert f"msm_blst_tpu_torch.{mod}" in names
 
 
 def test_entry_defaults_to_the_card():
     code = ("from msm_blst_tpu_torch.entry import entry\n"
             "entry()\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "RuntimeError" in r.stderr and "no CUDA device" in r.stderr, r.stderr
+
+
+def test_dryrun_multichip_defaults_to_the_card():
+    """The sharded dry run refuses to start its ranks without a card unless
+    given device="cpu"."""
+    code = ("from msm_blst_tpu_torch.entry import dryrun_multichip\n"
+            "dryrun_multichip(2)\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
